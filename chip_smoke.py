@@ -1,0 +1,454 @@
+"""Smoke run of the PyTorch port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Five phases, any failure fatal:
+  1. toolchain: torch / CUDA / nvcc versions, the card, TF32 off;
+  2. build the CUDA kernels from src/repro_torch/kernels/csrc with nvcc;
+  3. kernels: each kernel against its plain PyTorch version over the
+     reference case lists and the shapes of the serving path (float32 at
+     2e-5, bfloat16 at 2e-2), then timed beside its plain version, one
+     PyTorch library call and its bound;
+  4. model: full-width SmolLM-360M (random weights from a seed), prefill
+     8 x 512 and decode steps through the kernels, held against the plain
+     path on the card (float32 at 1e-4; bf16 at the JAX bounds or twice
+     the plain path's own rounding floor, whichever is larger; argmax equal
+     but at near-ties), with the kernels' launch counts checked;
+  5. serving: RealExecutor + DNNScalerController (hybrid) + ServingEngine
+     at full width, with zero bucket-cache misses after warm-up.
+
+Prints the kernels' JSON line, the card's name and power limit, and last
+the device JSON line.  Exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+if not torch.cuda.is_available():
+    sys.exit("chip_smoke: no CUDA device available")
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+from repro_torch.configs.base import InputShape, get_config  # noqa: E402
+from repro_torch.core.controller import DNNScalerController  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.decode_attention import \
+    decode_attention as k2  # noqa: E402
+from repro_torch.kernels.decode_attention import \
+    ops as decode_ops  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import \
+    decode_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import \
+    flash_attention as k1  # noqa: E402
+from repro_torch.kernels.flash_attention import \
+    ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.launch.serve import real_executor_for  # noqa: E402
+from repro_torch.models import api, layers  # noqa: E402
+from repro_torch.serving.engine import ServingEngine  # noqa: E402
+from repro_torch.serving.executor import tensor_leaves  # noqa: E402
+
+DEV = torch.device("cuda")
+HBM_BPS = 3.35e12          # H100 SXM device memory, bytes/s (data sheet)
+BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak, FLOP/s
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+# (B, Tq, Tk, H, KV, hd, causal, window, cap): the reference's FLASH_CASES,
+# plus one at head_dim 256
+FLASH_CASES = [
+    (2, 256, 256, 8, 2, 64, True, None, None),
+    (1, 128, 128, 4, 4, 32, True, 64, None),
+    (2, 200, 200, 6, 2, 64, True, None, 50.0),
+    (1, 256, 256, 8, 1, 128, True, 100, 30.0),
+    (1, 96, 96, 8, 8, 32, False, None, None),
+    (3, 384, 384, 15, 5, 64, True, None, None),
+    (2, 200, 200, 6, 2, 64, False, None, None),
+    (1, 64, 64, 8, 4, 256, True, 32, 50.0),     # gemma2's head_dim: CUDA-core body
+]
+# (B, S, H, KV, hd, pos, window, cap): the reference's DECODE_CASES
+DECODE_CASES = [
+    (2, 512, 8, 2, 64, 300, None, None),
+    (1, 512, 4, 1, 128, 511, 128, None),
+    (3, 300, 6, 6, 32, 150, None, 50.0),
+    (2, 1024, 48, 1, 64, 700, None, None),
+    (1, 256, 32, 4, 128, 0, None, None),
+]
+# the reference's kv-major cases (tests/test_paged_attention.py)
+KVMAJOR_CASES = [
+    (2, 300, 8, 2, 64, 299, None, None),
+    (3, 300, 6, 3, 64, 150, None, None),
+    (1, 512, 4, 1, 128, 37, None, None),
+    (1, 640, 12, 3, 64, 633, 128, None),
+    (2, 384, 10, 5, 32, 65, None, 40.0),
+    (1, 256, 8, 2, 64, 0, None, None),
+]
+
+# the serving path's shapes: SmolLM-360M, 8 prompts of 512 tokens, 32 steps
+ARCH, BATCH, PROMPT, STEPS = "smollm_360m", 8, 512, 32
+
+
+def _rand(gen, shape, dtype, scale=0.5):
+    return (torch.randn(shape, generator=gen, device=DEV) * scale).to(dtype)
+
+
+def _qkv(gen, q_shape, kv_shape, dtype):
+    """q and k at scale 2, so the scaled logits have a std of about 4 at any
+    head_dim and the softmax is peaked: outputs are O(|v|), not the near-
+    uniform average a tolerance of 2e-2 could hide a masking error in."""
+    return (_rand(gen, q_shape, dtype, 2.0), _rand(gen, kv_shape, dtype, 2.0),
+            _rand(gen, kv_shape, dtype))
+
+
+def _time_ms(fn, iters: int = 20) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def _bound(nbytes: float, flops: float) -> tuple:
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _maxerr(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def _relerr(out, ref) -> float:
+    """max |out - ref| over mean |ref|: the error against a typical output."""
+    return _maxerr(out, ref) / ref.float().abs().mean().item()
+
+
+# ---------------------------------------------------------------------------
+def phase_toolchain() -> str:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    nvcc = subprocess.run([build.nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"[toolchain] python {sys.version.split()[0]}  torch "
+          f"{torch.__version__}  cuda {torch.version.cuda}  nvcc "
+          f"{nvcc[-1]}")
+    print(f"[toolchain] device {torch.cuda.get_device_name(0)} x "
+          f"{torch.cuda.device_count()}  nvidia-smi: {smi}")
+    print(f"[toolchain] allow_tf32 matmul="
+          f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
+          f"{torch.backends.cudnn.allow_tf32}")
+    return smi
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    build.build("flash_attention", "decode_attention", force=True)
+    print(f"[build] nvcc sm_90a, both sources in parallel: "
+          f"{time.perf_counter() - t0:.1f}s")
+    for name, log in build.PTXAS_REPORT.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
+
+
+def _check_flash(gen, case, dtype) -> tuple:
+    B, Tq, Tk, H, KV, hd, causal, window, cap = case
+    q, k, v = _qkv(gen, (B, Tq, H, hd), (B, Tk, KV, hd), dtype)
+    out = flash_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                    logit_cap=cap)
+    ref = attention_ref(q, k, v, causal=causal, window=window, logit_cap=cap)
+    torch.cuda.synchronize()
+    err = _maxerr(out, ref)
+    tol = TOL[dtype]
+    assert torch.isfinite(out.float()).all(), ("flash", case, dtype)
+    assert torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol), \
+        ("flash kernel disagrees", case, dtype, err)
+    return err, _relerr(out, ref)
+
+
+def _check_decode(gen, case, dtype, kvmajor: bool) -> tuple:
+    B, S, H, KV, hd, pos, window, cap = case
+    q, k, v = _qkv(gen, (B, H, hd), (B, S, KV, hd), dtype)
+    p = torch.tensor([pos], dtype=torch.int32, device=DEV)
+    if kvmajor:   # the model's (B, KV, S, hd) layout, contiguous
+        out = decode_ops.decode_attention_kvmajor(
+            q, k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
+            p, window=window, logit_cap=cap)
+    else:
+        out = decode_ops.decode_attention(q, k, v, p, window=window,
+                                          logit_cap=cap)
+    ref = decode_attention_ref(q, k, v, pos, window=window, logit_cap=cap)
+    torch.cuda.synchronize()
+    err = _maxerr(out, ref)
+    tol = TOL[dtype]
+    assert torch.isfinite(out.float()).all(), ("decode", case, dtype)
+    assert torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol), \
+        ("decode kernel disagrees", case, dtype, err)
+    return err, _relerr(out, ref)
+
+
+def phase_kernels() -> dict:
+    cfg = get_config(ARCH)
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    S = PROMPT + STEPS
+    slice_flash = (BATCH, PROMPT, PROMPT, H, KV, hd, True, None, None)
+    slice_decode = (BATCH, S, H, KV, hd, S - 1, None, None)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    worst = {"flash": {}, "decode": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        fl = [_check_flash(gen, c, dtype) for c in FLASH_CASES + [slice_flash]]
+        dc = ([_check_decode(gen, c, dtype, False) for c in DECODE_CASES]
+              + [_check_decode(gen, c, dtype, True)
+                 for c in KVMAJOR_CASES + [slice_decode]])
+        for name, res in (("flash", fl), ("decode", dc)):
+            worst[name][dtype] = (max(e for e, _ in res),
+                                  max(r for _, r in res), len(res))
+    for name, w in worst.items():
+        (f_abs, f_rel, n), (b_abs, b_rel, _) = (w[torch.float32],
+                                                w[torch.bfloat16])
+        print(f"[kernels] {name}: max |kernel - plain| over {n} cases: "
+              f"float32 {f_abs:.3e} (tol 2e-5; {f_rel:.3e} of mean |plain|), "
+              f"bfloat16 {b_abs:.3e} (tol 2e-2; {b_rel:.3e} of mean |plain|)")
+
+    # timing at the serving path's shapes, in the path's dtype (bf16)
+    dt = torch.bfloat16
+    q, k, v = _qkv(gen, (BATCH, PROMPT, H, hd), (BATCH, PROMPT, KV, hd), dt)
+    f_err = _maxerr(flash_ops.flash_attention(q, k, v, causal=True),
+                    attention_ref(q, k, v, causal=True))
+    f_ms = _time_ms(lambda: flash_ops.flash_attention(q, k, v, causal=True))
+    f_plain = _time_ms(lambda: attention_ref(q, k, v, causal=True))
+    # the CUDA-core body, which float32 takes, beside its plain version
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    f32_ms = _time_ms(lambda: flash_ops.flash_attention(q32, k32, v32,
+                                                        causal=True))
+    f32_plain = _time_ms(lambda: attention_ref(q32, k32, v32, causal=True))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    f_lib = _time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    pairs = BATCH * H * PROMPT * (PROMPT + 1) // 2      # unmasked (q, k) pairs
+    f_bound, f_by = _bound(2 * (2 * q.numel() + 2 * k.numel()),
+                           4 * pairs * hd)
+
+    pos = S - 1
+    qd, kc, vc = _qkv(gen, (BATCH, H, hd), (BATCH, KV, S, hd), dt)
+    pd = torch.tensor([pos], dtype=torch.int32, device=DEV)
+    d_err = _maxerr(decode_ops.decode_attention_kvmajor(qd, kc, vc, pd),
+                    decode_attention_ref(qd, kc.transpose(1, 2),
+                                         vc.transpose(1, 2), pos))
+    d_ms = _time_ms(lambda: decode_ops.decode_attention_kvmajor(qd, kc, vc,
+                                                                pd))
+    d_plain = _time_ms(lambda: decode_attention_ref(
+        qd, kc.transpose(1, 2), vc.transpose(1, 2), pos))
+    live = pos + 1
+    d_lib = _time_ms(lambda: F.scaled_dot_product_attention(
+        qd[:, :, None], kc[:, :, :live], vc[:, :, :live], enable_gqa=True))
+    d_bound, d_by = _bound(2 * (2 * qd.numel() + 2 * BATCH * KV * live * hd),
+                           4 * BATCH * H * live * hd)
+    print(f"[kernels] flash at {slice_flash[:6]} bf16: kernel {f_ms:.4f} ms, "
+          f"plain {f_plain:.4f} ms, sdpa {f_lib:.4f} ms, bound {f_bound:.4f} "
+          f"ms ({f_by}); float32 (CUDA-core body) kernel {f32_ms:.4f} ms, "
+          f"plain {f32_plain:.4f} ms")
+    print(f"[kernels] decode at {slice_decode[:6]} bf16: kernel {d_ms:.4f} "
+          f"ms, plain {d_plain:.4f} ms, sdpa {d_lib:.4f} ms, bound "
+          f"{d_bound:.4f} ms ({d_by})")
+    return {
+        "flash": dict(name="flash_attention_fwd", route="cuda",
+                      source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                      replaces="src/repro/kernels/flash_attention/"
+                               "flash_attention.py:111",
+                      max_abs_err=f_err, ms=f_ms, plain_ms=f_plain,
+                      bound_ms=f_bound, bound_by=f_by, library_ms=f_lib),
+        "decode": dict(name="decode_attention_fwd", route="cuda",
+                       source="src/repro_torch/kernels/csrc/"
+                              "decode_attention.cu",
+                       replaces="src/repro/kernels/decode_attention/"
+                                "decode_attention.py:90",
+                       max_abs_err=d_err, ms=d_ms, plain_ms=d_plain,
+                       bound_ms=d_bound, bound_by=d_by, library_ms=d_lib),
+    }
+
+
+def _bound_used(got, want, atol, rtol) -> float:
+    """Share of the bound |got - want| <= atol + rtol |want| used (<= 1
+    passes)."""
+    return (((got - want).abs() - rtol * want.abs()).max() / atol).item()
+
+
+def _check_logits(got, want, atol, rtol, what) -> int:
+    """Logits agree within atol + rtol |want|; an argmax that differs must
+    be a near-tie of the plain path (its logit at the kernel path's choice
+    within atol of its max).  Returns the number of differing rows."""
+    assert got.shape == want.shape and torch.isfinite(got).all(), what
+    used = _bound_used(got, want, atol, rtol)
+    assert used <= 1.0, (what, _maxerr(got, want), used)
+    a_got, a_want = got.argmax(-1), want.argmax(-1)
+    diff = a_got != a_want
+    if diff.any():
+        top = want.max(-1).values
+        at_got = want.gather(-1, a_got[:, None])[:, 0]
+        assert ((top - at_got)[diff] <= atol).all(), (what, "argmax")
+    return int(diff.sum())
+
+
+def _clone(cache) -> list:
+    return [{k: v.clone() for k, v in g.items()} for g in cache]
+
+
+def _model_run(dtype: str, steps: int) -> None:
+    """Full-width model: the kernel path against the plain path on the same
+    inputs.  Each decode step starts both paths from the kernel path's
+    cache, so a step compares the step alone.
+
+    float32: atol = rtol = 1e-4; the two paths differ only in summation
+    order, and a bf16 computation anywhere would miss this by far.
+    bfloat16: at 32 layers any change of rounding grows chaotically, so the
+    bound is the larger of the JAX bound for 2-layer models (3e-2 prefill,
+    5e-2 decode, absolute) and twice the gap, measured in this run, between
+    the plain path and itself with 64-key instead of 512-key attention
+    blocks (same math, other rounding)."""
+    cfg = get_config(ARCH).replace(dtype=dtype)
+    cfg_k, cfg_x = cfg.replace(kernel_impl="pallas"), cfg.replace(kernel_impl="xla")
+    params = api.init_params(cfg_k, seed=0)
+    nparam = sum(x.numel() for x in tensor_leaves(params))
+    batch = api.make_batch(cfg, InputShape("smoke", PROMPT, BATCH, "prefill"),
+                           seed=1)
+    cap = PROMPT + steps
+    lx, _ = api.prefill(params, batch, cfg_x, capacity=cap)
+    if dtype == "float32":
+        floor, rtol = None, 1e-4
+        atol = {"prefill": 1e-4, "decode": 1e-4}
+    else:
+        saved, layers.DEFAULT_BLOCK_K = layers.DEFAULT_BLOCK_K, 64
+        try:
+            l64, _ = api.prefill(params, batch, cfg_x, capacity=cap)
+        finally:
+            layers.DEFAULT_BLOCK_K = saved
+        floor, rtol = _maxerr(l64, lx), 0.0
+        atol = {"prefill": max(3e-2, 2 * floor),
+                "decode": max(5e-2, 2 * floor)}
+    k1.LAUNCHES = k2.LAUNCHES = 0
+    lk, ck = api.prefill(params, batch, cfg_k, capacity=cap)
+    torch.cuda.synchronize()
+    assert (k1.LAUNCHES, k2.LAUNCHES) == (cfg.num_layers, 0), \
+        ("prefill launches", k1.LAUNCHES, k2.LAUNCHES)
+    flips = _check_logits(lk, lx, atol["prefill"], rtol, "prefill logits")
+    p_err, p_jax = _maxerr(lk, lx), _bound_used(lk, lx, 3e-2, 3e-2)
+    d_err = d_jax = 0.0
+    tok = lk.argmax(-1).to(torch.int32)
+    pos = torch.tensor(PROMPT, dtype=torch.int32, device=DEV)
+    for step in range(steps):
+        dx, _ = api.decode_step(params, _clone(ck), tok, pos, cfg_x)
+        before = k2.LAUNCHES
+        dk, ck = api.decode_step(params, ck, tok, pos, cfg_k)
+        torch.cuda.synchronize()
+        assert k2.LAUNCHES - before == cfg.num_layers, ("decode launches", step)
+        assert k1.LAUNCHES == cfg.num_layers, "decode reached the flash kernel"
+        flips += _check_logits(dk, dx, atol["decode"], rtol,
+                               f"decode step {step}")
+        d_err = max(d_err, _maxerr(dk, dx))
+        d_jax = max(d_jax, _bound_used(dk, dx, 5e-2, 5e-2))
+        tok = dk.argmax(-1).to(torch.int32)
+        pos = pos + 1
+    bound = ("atol = rtol = 1e-4" if floor is None else
+             f"atol {atol['prefill']:.3e} / {atol['decode']:.3e}, plain-path "
+             f"block floor {floor:.3e}")
+    print(f"[model] {cfg.name} full width ({nparam / 1e6:.1f}M params, "
+          f"{cfg.num_layers} layers, {dtype}): prefill {BATCH}x{PROMPT} + "
+          f"{steps} decode steps, kernel path vs plain path: max |dlogit| "
+          f"prefill {p_err:.3e}, decode {d_err:.3e} ({bound}); share of the "
+          f"JAX 2-layer bounds used: prefill {p_jax:.2f} (3e-2), decode "
+          f"{d_jax:.2f} (5e-2); argmax differs on {flips} of "
+          f"{BATCH * (steps + 1)} rows (near-ties only); launches flash "
+          f"{k1.LAUNCHES} decode {k2.LAUNCHES} (= {cfg.num_layers} per "
+          f"prefill, {cfg.num_layers} per decode step)")
+
+
+def phase_model() -> None:
+    _model_run("float32", 4)
+    _model_run("bfloat16", STEPS)
+
+
+def phase_serving() -> dict:
+    """The main path: a user's serving run.  Kernel launch counts are read
+    over exactly the engine's run, after the buckets' warm-up, the SLO's
+    calibration and the profiler's probes."""
+    t0 = time.perf_counter()
+    ex, cfg = real_executor_for(ARCH, prompt_len=PROMPT, new_tokens=STEPS)
+    max_bs, max_mtl = 64, 4
+    for n in sorted({ex.bucket(i) for i in range(1, max_bs * max_mtl + 1)}):
+        ex.warmup(n, 1)
+    warm_s = time.perf_counter() - t0
+    warm_misses = ex.cache_stats.misses
+    ex.cache_stats.reset_counters()
+    base = ex.mean_latency(1, 1)
+    slo = 4 * base
+    ctrl = DNNScalerController(ex, slo, mode="hybrid", m=8, n=4,
+                               max_bs=max_bs, max_mtl=max_mtl)
+    eng = ServingEngine(ex, slo, instance_launch_s=0.2)
+    torch.cuda.synchronize()
+    k1.LAUNCHES = k2.LAUNCHES = 0
+    acc = eng.run(ctrl, max_steps=40)
+    torch.cuda.synchronize()
+    launches = {"flash": k1.LAUNCHES, "decode": k2.LAUNCHES}
+    s, batches = acc.summary(), len(acc.trace)
+    act = ctrl.action()
+    cs = ex.cache_stats
+    print(f"[serving] {cfg.name} full width, {PROMPT}-token prompts + "
+          f"{STEPS} decode steps per request: warmed {warm_misses} buckets "
+          f"in {warm_s:.1f}s; base {base * 1e3:.1f} ms -> SLO "
+          f"{slo * 1e3:.1f} ms")
+    print(f"[serving] approach={ctrl.approach} profiler picked "
+          f"{ctrl.profile.approach}; steady(bs={act.bs}, mtl={act.mtl}); "
+          f"throughput {s['throughput']:.2f} req/s; p95 "
+          f"{s['p95_s'] * 1e3:.1f} ms; attainment {s['slo_attainment']:.3f}; "
+          f"exec-cache hits {cs.hits} misses {cs.misses} after warm-up")
+    assert s["throughput"] > 0 and math.isfinite(s["p95_s"]), s
+    assert cs.misses == 0, ("bucket-cache misses after warm-up", cs.misses)
+    assert launches == {"flash": cfg.num_layers * batches,
+                        "decode": cfg.num_layers * STEPS * batches}, launches
+    print(f"[serving] kernel launches over the engine's run ({batches} "
+          f"served batches, {s['items']} served requests): flash "
+          f"{launches['flash']}, decode {launches['decode']}; per served "
+          f"request flash {launches['flash'] / s['items']:.3f}, decode "
+          f"{launches['decode'] / s['items']:.3f} ({cfg.num_layers} flash "
+          f"and {cfg.num_layers * STEPS} decode per batch)")
+    return launches
+
+
+def main() -> None:
+    t0 = time.perf_counter()
+    smi = phase_toolchain()
+    phase_build()
+    rows = phase_kernels()
+    phase_model()
+    launches = phase_serving()
+    kernels = [dict(rows[n], launches=launches[n]) for n in ("flash", "decode")]
+    print(f"[done] {time.perf_counter() - t0:.1f}s")
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

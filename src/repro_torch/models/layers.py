@@ -1,0 +1,301 @@
+"""Shared neural-net layers: norms, RoPE, attention (flash + decode), MLP.
+
+Counterpart of ``repro.models.layers``: plain functions over explicit
+parameter dictionaries in the JAX package's layout.  Attention is blockwise
+(online softmax over KV blocks, query blocks in an outer loop), the plain
+PyTorch mirror of the flash kernel in ``repro_torch.kernels``.  Forward
+only: training is not part of this package yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -2.0 ** 30  # large-negative that survives bf16 softmax math in f32
+
+# Block sizes of the plain blockwise attention when the caller gives none
+# (the reference's defaults on an empty autotune cache); read at call time.
+DEFAULT_BLOCK_Q = 256
+DEFAULT_BLOCK_K = 512
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6):
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * weight.float()).to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """Rotary embedding. x: (..., T, H, hd); positions broadcastable to (..., T)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    angles = positions[..., None].float() * freqs                # (..., T, half)
+    cos = torch.cos(angles)[..., None, :]                        # (..., T, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Blockwise flash attention (plain PyTorch) — prefill path.
+# ---------------------------------------------------------------------------
+def _pad_axis(x: torch.Tensor, axis: int, multiple: int) -> torch.Tensor:
+    pad = (-x.shape[axis]) % multiple
+    if pad == 0:
+        return x
+    widths = [0, 0] * (x.ndim - axis - 1) + [0, pad]
+    return F.pad(x, widths)
+
+
+def _mask_for(qpos, kpos, causal, window, kv_len):
+    mask = (kpos[None, :] < kv_len)
+    if causal:
+        mask = mask & (kpos[None, :] <= qpos[:, None])
+    if window is not None:
+        mask = mask & (kpos[None, :] > qpos[:, None] - window)
+    return mask
+
+
+def flash_attention(
+    q: torch.Tensor,             # (B, Tq, H, hd)
+    k: torch.Tensor,             # (B, Tk, KV, hd)
+    v: torch.Tensor,             # (B, Tk, KV, hd)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    logit_cap: Optional[float] = None,
+    q_offset: int = 0,           # absolute position of q[0] (prefill continuation)
+    kv_valid_len: Optional[int] = None,    # mask k positions >= this
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
+) -> torch.Tensor:
+    """Online-softmax attention with O(block_q * block_k) live scores.
+
+    Numerics follow the reference: q is scaled in its own dtype, scores and
+    the softmax state are float32, and P is cast to v's dtype before the
+    PV product."""
+    B, Tq, H, hd = q.shape
+    _, Tk, KV, _ = k.shape
+    assert H % KV == 0, (H, KV)
+    G = H // KV
+    block_q = min(block_q or DEFAULT_BLOCK_Q, max(Tq, 1))
+    block_k = min(block_k or DEFAULT_BLOCK_K, max(Tk, 1))
+    qp = _pad_axis(q, 1, block_q)
+    kp = _pad_axis(k, 1, block_k)
+    vp = _pad_axis(v, 1, block_k)
+    nq = qp.shape[1] // block_q
+    nk = kp.shape[1] // block_k
+    qp = qp.reshape(B, nq, block_q, KV, G, hd)
+    kp = kp.reshape(B, nk, block_k, KV, hd).float()
+    vp = vp.reshape(B, nk, block_k, KV, hd)
+    kv_len = Tk if kv_valid_len is None else kv_valid_len
+    scale = hd ** -0.5
+    dev = q.device
+    outs = []
+    for qi in range(nq):
+        qblk = (qp[:, qi] * scale).float()                     # (B,bq,KV,G,hd)
+        qpos = q_offset + qi * block_q + torch.arange(block_q, device=dev)
+        m = torch.full((B, KV, G, block_q), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, KV, G, block_q), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, block_q, KV, G, hd), dtype=torch.float32,
+                          device=dev)
+        for ki in range(nk):
+            kpos = ki * block_k + torch.arange(block_k, device=dev)
+            s = softcap(torch.einsum("bqkgd,bskd->bkgqs", qblk, kp[:, ki]),
+                        logit_cap)
+            mask = _mask_for(qpos, kpos, causal, window, kv_len)
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(),
+                              vp[:, ki].float())
+            acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv
+            m = m_new
+        l = torch.clamp(l, min=1e-30)
+        outs.append((acc / l.permute(0, 3, 1, 2)[..., None]).to(q.dtype))
+    out = torch.stack(outs, dim=1).reshape(B, nq * block_q, H, hd)
+    return out[:, :Tq]
+
+
+# ---------------------------------------------------------------------------
+# Single-token decode attention against a KV cache (plain PyTorch; the CUDA
+# kernel in repro_torch.kernels.decode_attention computes the same thing).
+# ---------------------------------------------------------------------------
+def decode_attention(
+    q: torch.Tensor,        # (B, H, hd) — one new token per sequence
+    k_cache: torch.Tensor,  # (B, KV, S, hd)
+    v_cache: torch.Tensor,
+    pos,                    # int or 0-d tensor
+    *,
+    window: Optional[int] = None,
+    logit_cap: Optional[float] = None,
+    k_new: Optional[torch.Tensor] = None,   # (B, KV, 1, hd): the new token's
+    v_new: Optional[torch.Tensor] = None,   # K/V, attended separately
+    exclude_slot=None,                      # ring buffers: stale slot to mask
+) -> torch.Tensor:
+    B, H, hd = q.shape
+    _, KV, S, _ = k_cache.shape
+    G = H // KV
+    scale = hd ** -0.5
+    qh = (q.reshape(B, KV, G, hd) * scale).float()
+    s = softcap(torch.einsum("bkgd,bksd->bkgs", qh, k_cache.float()),
+                logit_cap)
+    kpos = torch.arange(S, device=q.device)
+    # with k_new provided, the cache holds positions < pos (slot pos stale)
+    mask = (kpos < pos) if k_new is not None else (kpos <= pos)
+    if window is not None:
+        mask = mask & (kpos > pos - window)
+    if exclude_slot is not None:
+        mask = mask & (kpos != exclude_slot)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    if k_new is None:
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bkgs,bksd->bkgd", p.to(v_cache.dtype).float(),
+                           v_cache.float())
+        return out.reshape(B, H, hd).to(q.dtype)
+
+    # two-part softmax: the cache scores and the new token's self-score are
+    # merged through an explicit max / denominator, as in the reference
+    s_self = softcap(torch.einsum("bkgd,bkxd->bkgx", qh, k_new.float()),
+                     logit_cap)
+    m = torch.maximum(s.amax(dim=-1, keepdim=True), s_self)    # (B,KV,G,1)
+    p_cache = torch.exp(s - m)
+    p_self = torch.exp(s_self - m)
+    denom = p_cache.sum(dim=-1, keepdim=True) + p_self
+    out = torch.einsum("bkgs,bksd->bkgd", p_cache.to(v_cache.dtype).float(),
+                       v_cache.float())
+    out = out + torch.einsum("bkgx,bkxd->bkgd", p_self.to(v_new.dtype).float(),
+                             v_new.float())
+    out = out / denom
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention block (pre-norm [+ optional post-norm], GQA, RoPE, residual)
+# ---------------------------------------------------------------------------
+def _proj_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum('btd,dhx->bthx') as one matrix product."""
+    d, h, hx = w.shape
+    return (x @ w.reshape(d, h * hx)).unflatten(-1, (h, hx))
+
+
+def qkv_proj(p: dict, x: torch.Tensor, cfg):
+    q = _proj_in(x, p["wq"])
+    k = _proj_in(x, p["wk"])
+    v = _proj_in(x, p["wv"])
+    if cfg.attention_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return q, k, v
+
+
+def _proj_out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum('bthx,hxd->btd') as one matrix product."""
+    h, hx, d = w.shape
+    return o.flatten(-2) @ w.reshape(h * hx, d)
+
+
+def attn_block_apply(
+    p: dict,
+    x: torch.Tensor,                    # (B, T, d)
+    cfg,
+    *,
+    window: Optional[int] = None,
+    causal: bool = True,
+    positions: Optional[torch.Tensor] = None,   # (T,) absolute positions
+    cache: Optional[dict] = None,       # {'k','v'}: (B, KV, S, hd) — decode only
+    cache_pos: Optional[torch.Tensor] = None,   # 0-d int tensor
+    mode: str = "prefill",              # prefill | decode
+    ring: bool = False,                 # windowed ring-buffer cache (decode)
+):
+    """Returns (y, new_kv): new_kv is (k, v) for prefill and None for decode.
+
+    Decode writes the new token's K/V into ``cache`` IN PLACE, at slot
+    ``cache_pos`` (``cache_pos % capacity`` for a ring), before attending.
+    The reference instead copied each layer's whole cache with a dynamic
+    update slice and wrote the delta again after the layer scan; on the GPU
+    a full per-layer cache copy every step would dominate the step, while
+    the in-place write moves one slot.  The cache left behind equals the
+    one the reference's ``decode_step`` returns."""
+    B, T, d = x.shape
+    h = rmsnorm(x, p["norm"], cfg.norm_eps)
+    q, k, v = qkv_proj(p, h, cfg)
+    if positions is None:
+        positions = torch.arange(T, device=x.device)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    if mode == "decode":
+        assert cache is not None and T == 1
+        kc, vc = cache["k"], cache["v"]
+        capacity = kc.shape[2]
+        k_new = k.transpose(1, 2).to(kc.dtype)          # (B, KV, 1, hd)
+        v_new = v.transpose(1, 2).to(vc.dtype)
+        slot = (cache_pos % capacity) if ring else cache_pos
+        slot = torch.as_tensor(slot, device=x.device).reshape(1).long()
+        kc.index_copy_(2, slot, k_new)
+        vc.index_copy_(2, slot, v_new)
+        if cfg.kernel_impl == "pallas" and not ring:
+            from repro_torch.kernels.decode_attention.ops import \
+                decode_attention_kvmajor
+            o = decode_attention_kvmajor(q[:, 0], kc, vc, cache_pos,
+                                         window=window,
+                                         logit_cap=cfg.attn_logit_softcap)
+        else:
+            o = decode_attention(q[:, 0], kc, vc,
+                                 capacity if ring else cache_pos,
+                                 window=None if ring else window,
+                                 logit_cap=cfg.attn_logit_softcap,
+                                 k_new=k_new, v_new=v_new,
+                                 exclude_slot=slot[0] if ring else None)
+        o = o[:, None]                                  # (B, 1, H, hd)
+        new_kv = None
+    elif mode == "prefill" and cfg.kernel_impl == "pallas" and causal:
+        from repro_torch.kernels.flash_attention.ops import \
+            flash_attention as kernel_flash
+        o = kernel_flash(q, k, v, causal=True, window=window,
+                         logit_cap=cfg.attn_logit_softcap)
+        new_kv = {"k": k, "v": v}
+    else:
+        o = flash_attention(q, k, v, causal=causal, window=window,
+                            logit_cap=cfg.attn_logit_softcap)
+        new_kv = {"k": k, "v": v}
+
+    y = _proj_out(o, p["wo"])
+    if cfg.post_block_norm:
+        y = rmsnorm(y, p["post_norm"], cfg.norm_eps)
+    return x + y, new_kv
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+def mlp_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    h = rmsnorm(x, p["norm"], cfg.norm_eps)
+    y = (F.silu(h @ p["wg"]) * (h @ p["wi"])) @ p["wo"]
+    if cfg.post_block_norm:
+        y = rmsnorm(y, p["post_norm"], cfg.norm_eps)
+    return x + y

@@ -1,0 +1,257 @@
+"""Decoder-only transformer assembly for the dense layer groups.
+
+Counterpart of ``repro.models.transformer`` for the ``attn``, ``swa`` and
+``local_global`` groups.  Each group's parameters keep the reference's
+layout, stacked on a leading layer axis; a Python loop over that axis takes
+the place of ``lax.scan``.  Two modes:
+
+  prefill — full-sequence forward, returns last-position logits + KV cache
+  decode  — one token against the cache (the serving hot path)
+
+MoE, Mamba and the hybrid groups are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ATTN, SWA, torch_dtype
+from repro_torch.models import layers as L
+
+DENSE_KINDS = (ATTN, SWA, "local_global")
+
+
+def _check_kind(kind: str) -> None:
+    if kind not in DENSE_KINDS:
+        raise NotImplementedError(
+            f"layer group {kind!r} is not ported to repro_torch yet")
+
+
+# ---------------------------------------------------------------------------
+# Parameter init (random, from an explicit torch.Generator)
+# ---------------------------------------------------------------------------
+def _normal(gen, shape, dt, device):
+    return (torch.randn(shape, generator=gen, device=device) * 0.02).to(dt)
+
+
+def _init_attn_block(gen, cfg, count, dt, device) -> dict:
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {
+        "wq": _normal(gen, (count, d, H, hd), dt, device),
+        "wk": _normal(gen, (count, d, KV, hd), dt, device),
+        "wv": _normal(gen, (count, d, KV, hd), dt, device),
+        "wo": _normal(gen, (count, H, hd, d), dt, device),
+        "norm": torch.ones((count, d), dtype=dt, device=device),
+    }
+    if cfg.attention_bias:
+        p["bq"] = torch.zeros((count, H, hd), dtype=dt, device=device)
+        p["bk"] = torch.zeros((count, KV, hd), dtype=dt, device=device)
+        p["bv"] = torch.zeros((count, KV, hd), dtype=dt, device=device)
+    if cfg.post_block_norm:
+        p["post_norm"] = torch.ones((count, d), dtype=dt, device=device)
+    return p
+
+
+def _init_mlp(gen, cfg, count, dt, device) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    p = {
+        "wi": _normal(gen, (count, d, f), dt, device),
+        "wg": _normal(gen, (count, d, f), dt, device),
+        "wo": _normal(gen, (count, f, d), dt, device),
+        "norm": torch.ones((count, d), dtype=dt, device=device),
+    }
+    if cfg.post_block_norm:
+        p["post_norm"] = torch.ones((count, d), dtype=dt, device=device)
+    return p
+
+
+def _init_dense_stack(gen, cfg, count, dt, device) -> dict:
+    if cfg.num_experts:
+        raise NotImplementedError("MoE layers are not ported to repro_torch yet")
+    return {"attn": _init_attn_block(gen, cfg, count, dt, device),
+            "mlp": _init_mlp(gen, cfg, count, dt, device)}
+
+
+def init_params(gen: torch.Generator, cfg, device) -> dict:
+    dt = torch_dtype(cfg)
+    groups = []
+    for kind, count in cfg.layer_groups:
+        _check_kind(kind)
+        if kind == "local_global":
+            groups.append({"local": _init_dense_stack(gen, cfg, count, dt, device),
+                           "global": _init_dense_stack(gen, cfg, count, dt, device)})
+        else:
+            groups.append(_init_dense_stack(gen, cfg, count, dt, device))
+    params = {
+        "embed": _normal(gen, (cfg.vocab_size, cfg.d_model), dt, device),
+        "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=device),
+        "groups": groups,
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _normal(gen, (cfg.d_model, cfg.vocab_size), dt, device)
+    return params
+
+
+def layer_params(gp: dict, i: int) -> dict:
+    """Layer ``i`` of a stacked group: every leaf indexed on its layer axis."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in gp.items()}
+
+
+# ---------------------------------------------------------------------------
+# Layer application
+# ---------------------------------------------------------------------------
+def dense_layer_apply(lp, x, cfg, *, window, mode, kv=None, cache_pos=None,
+                      positions=None, ring=False):
+    x, new_kv = L.attn_block_apply(lp["attn"], x, cfg, window=window,
+                                   mode=mode, cache=kv, cache_pos=cache_pos,
+                                   positions=positions, ring=ring)
+    x = L.mlp_apply(lp["mlp"], x, cfg)
+    return x, new_kv
+
+
+def _window(cfg, kind):
+    return cfg.sliding_window if kind == SWA else None
+
+
+# ---------------------------------------------------------------------------
+# Cache allocation
+# ---------------------------------------------------------------------------
+def init_cache(cfg, batch: int, capacity: int, windowed: bool = False,
+               device=None) -> list:
+    """windowed=True: sliding-window layers allocate only ``window`` slots
+    (ring buffer) instead of the full context."""
+    dt = torch_dtype(cfg)
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    wcap = capacity
+    if windowed and cfg.sliding_window:
+        wcap = min(capacity, cfg.sliding_window)
+
+    def kv(count, cap):
+        return {"k": torch.zeros((count, batch, KV, cap, hd), dtype=dt,
+                                 device=device),
+                "v": torch.zeros((count, batch, KV, cap, hd), dtype=dt,
+                                 device=device)}
+
+    caches = []
+    for kind, count in cfg.layer_groups:
+        _check_kind(kind)
+        if kind == "local_global":
+            caches.append({"local": kv(count, wcap),
+                           "global": kv(count, capacity)})
+        else:
+            caches.append(kv(count, wcap if kind == SWA else capacity))
+    return caches
+
+
+# ---------------------------------------------------------------------------
+# Group execution
+# ---------------------------------------------------------------------------
+def _put(buf: dict, i: int, kv: dict, cache_pos: int) -> None:
+    """Write layer i's prefill K/V (B, T, KV, hd) at [cache_pos, cache_pos+T)."""
+    T = kv["k"].shape[1]
+    for name in ("k", "v"):
+        buf[name][i, :, :, cache_pos:cache_pos + T] = kv[name].transpose(1, 2)
+
+
+def run_group_prefill(gp, x, cfg, kind, cache, *, positions, cache_pos=0):
+    """Forward with the cache written in place at [cache_pos, cache_pos+T)."""
+    _check_kind(kind)
+    if kind == "local_global":
+        for i in range(gp["local"]["attn"]["wq"].shape[0]):
+            x, kv_l = dense_layer_apply(layer_params(gp["local"], i), x, cfg,
+                                        window=cfg.sliding_window,
+                                        mode="prefill", positions=positions)
+            _put(cache["local"], i, kv_l, cache_pos)
+            x, kv_g = dense_layer_apply(layer_params(gp["global"], i), x, cfg,
+                                        window=None, mode="prefill",
+                                        positions=positions)
+            _put(cache["global"], i, kv_g, cache_pos)
+        return x, cache
+    for i in range(gp["attn"]["wq"].shape[0]):
+        x, kv = dense_layer_apply(layer_params(gp, i), x, cfg,
+                                  window=_window(cfg, kind), mode="prefill",
+                                  positions=positions)
+        _put(cache, i, kv, cache_pos)
+    return x, cache
+
+
+def _layer_cache(buf: dict, i: int) -> dict:
+    return {"k": buf["k"][i], "v": buf["v"][i]}
+
+
+def run_group_decode(gp, x, cfg, kind, cache, *, pos, windowed=False):
+    """One-token step.  pos: 0-d int tensor — the slot the new token lands in.
+    windowed=True: sliding-window layers use ring-buffer caches.  The cache
+    is updated in place (see ``layers.attn_block_apply``)."""
+    _check_kind(kind)
+    positions = pos.reshape(1)
+    if kind == "local_global":
+        for i in range(gp["local"]["attn"]["wq"].shape[0]):
+            x, _ = dense_layer_apply(layer_params(gp["local"], i), x, cfg,
+                                     window=cfg.sliding_window, mode="decode",
+                                     kv=_layer_cache(cache["local"], i),
+                                     cache_pos=pos, positions=positions,
+                                     ring=windowed)
+            x, _ = dense_layer_apply(layer_params(gp["global"], i), x, cfg,
+                                     window=None, mode="decode",
+                                     kv=_layer_cache(cache["global"], i),
+                                     cache_pos=pos, positions=positions)
+        return x, cache
+    ring = windowed and kind == SWA
+    for i in range(gp["attn"]["wq"].shape[0]):
+        x, _ = dense_layer_apply(layer_params(gp, i), x, cfg,
+                                 window=_window(cfg, kind), mode="decode",
+                                 kv=_layer_cache(cache, i), cache_pos=pos,
+                                 positions=positions, ring=ring)
+    return x, cache
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+def embed_tokens(params, tokens, cfg):
+    x = params["embed"][tokens].to(torch_dtype(cfg))
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def head_matrix(params, cfg):
+    if cfg.tie_embeddings:
+        return params["embed"].T            # (d, V)
+    return params["lm_head"]
+
+
+def logits_last(params, h_last, cfg):
+    """h_last: (B, d) -> (B, V) float32 logits (with final softcap)."""
+    out = h_last.float() @ head_matrix(params, cfg).float()
+    return L.softcap(out, cfg.final_logit_softcap)
+
+
+# ---------------------------------------------------------------------------
+# Public entry points
+# ---------------------------------------------------------------------------
+def prefill(params, batch, cfg, capacity: int):
+    """Returns (last_logits (B,V) f32, cache) with cache capacity ``capacity``."""
+    tokens = batch["tokens"]
+    x = embed_tokens(params, tokens, cfg)
+    B, T = x.shape[0], x.shape[1]
+    positions = torch.arange(T, device=x.device)
+    cache = init_cache(cfg, B, capacity, device=x.device)
+    for gp, c, (kind, _) in zip(params["groups"], cache, cfg.layer_groups):
+        x, _ = run_group_prefill(gp, x, cfg, kind, c, positions=positions)
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return logits_last(params, x[:, -1], cfg), cache
+
+
+def decode_step(params, cache, tokens, pos, cfg, windowed: bool = False):
+    """tokens: (B,) int new token ids; pos: 0-d int tensor slot index.
+
+    Returns (logits (B,V) f32, cache).  The cache is updated in place and
+    the same list is returned."""
+    x = embed_tokens(params, tokens[:, None], cfg)
+    for gp, c, (kind, _) in zip(params["groups"], cache, cfg.layer_groups):
+        x, _ = run_group_decode(gp, x, cfg, kind, c, pos=pos, windowed=windowed)
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return logits_last(params, x[:, 0], cfg), cache

@@ -1,0 +1,420 @@
+"""Executors: where (simulated or real) inference time comes from.
+
+Counterpart of ``repro.serving.executor``.
+
+SimExecutor — analytical device model (device_model.py) + latency noise;
+  a verbatim copy of the reference's.
+
+RealExecutor — actually runs a model callable on the device and measures
+  wall clock.  Multi-tenancy is emulated by folding MTL independent
+  instance batches into one batch, as in the reference.
+
+  Batch shapes are bucketed so scaler probes of nearby (bs, mtl) points
+  reuse one warmed-up bucket, and every bucket's first (warm-up) run is
+  timed and reported in ``result["compile_time"]``, so the engine charges
+  it to the service clock like an instance-launch stall.  PyTorch runs
+  eagerly: a bucket's warm-up is one full run, ended by a device
+  synchronise.  Cache hit/miss counters live in ``metrics.ExecCacheStats``;
+  steady-state probing must show zero misses after warm-up.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.serving import device_model as dm
+from repro_torch.serving import tenancy
+from repro_torch.serving.metrics import ExecCacheStats
+
+
+class SimExecutor:
+    """Closed-loop simulated executor for one job."""
+
+    def __init__(self, profile: dm.JobProfile, device: dm.Device = dm.TESLA_P40,
+                 seed: int = 0, mesh_shape: Optional[tuple] = None,
+                 partition=None, power_share: float = 1.0):
+        self.profile = profile
+        self.device = device
+        self.sampler = dm.LatencySampler(seed=seed)
+        self.mesh_shape = mesh_shape   # TPU mode: tenancy = submesh split
+        self.partition = partition     # TenantSlice: spatial slice pricing
+        self.power_share = power_share  # time-share fraction for power pricing
+        self.clock = 0.0
+        self._lat_cache: dict = {}     # (bs, mtl) -> mean latency (exact)
+        self._power_cache: dict = {}   # (bs, mtl) -> (total_w, dynamic_w)
+        self._tok_cache: dict = {}     # (slots, mtl, prefills) -> mean step
+
+    def set_partition(self, ts) -> None:
+        """Resize this executor's spatial slice (MPS set-percentage / MIG
+        reconfigure): repricing only, no instance relaunch — the cheapness
+        the cluster's resize-instead-of-migrate path exploits."""
+        self.partition = ts
+        self._lat_cache.clear()
+        self._power_cache.clear()
+        self._tok_cache.clear()
+
+    # -- pricing ------------------------------------------------------------
+    def mean_latency(self, bs: int, mtl: int) -> float:
+        key = (bs, mtl)
+        lat = self._lat_cache.get(key)
+        if lat is None:
+            lat = self._price(bs, mtl)
+            self._lat_cache[key] = lat
+        return lat
+
+    def _price(self, bs: int, mtl: int) -> float:
+        if self.partition is not None:
+            ts = self.partition
+            return dm.part_latency(self.device, self.profile, bs, mtl,
+                                   inv_share=ts.inv_share,
+                                   tenants=ts.tenants,
+                                   isolation=ts.isolation)
+        if self.mesh_shape is not None:
+            # non-divisor MTLs over-partition (plan_at_least) instead of
+            # returning inf — an inf step would poison the engine clock
+            # and every downstream metric the moment a scaler probes one
+            p = tenancy.plan_at_least(self.mesh_shape, mtl)
+            if p is None:
+                return float("inf")
+            return dm.step_latency(self.device, self.profile, bs,
+                                   share=p.share)["t_step"]
+        return dm.mt_latency(self.device, self.profile, bs, mtl)
+
+    def price_surface(self, bs_values, mtl_values) -> np.ndarray:
+        """Mean-latency surface over the whole (bs, mtl) grid — one
+        vectorized call per tenancy plan instead of a Python double loop.
+        Shape (len(bs_values), len(mtl_values))."""
+        bs_values = np.asarray(bs_values)
+        if self.partition is not None:
+            ts = self.partition
+            return dm.part_latency_grid(self.device, self.profile,
+                                        bs_values, mtl_values,
+                                        inv_share=ts.inv_share,
+                                        tenants=ts.tenants,
+                                        isolation=ts.isolation)
+        if self.mesh_shape is None:
+            return dm.mt_latency_grid(self.device, self.profile,
+                                      bs_values, mtl_values)
+        cols = []
+        for m in mtl_values:
+            p = tenancy.plan_at_least(self.mesh_shape, int(m))
+            if p is None:
+                cols.append(np.full(len(bs_values), np.inf))
+            else:
+                cols.append(dm.step_latency_grid(
+                    self.device, self.profile, bs_values,
+                    share=p.share)["t_step"])
+        return np.stack(cols, axis=1)
+
+    def fits(self, bs: int, mtl: int) -> bool:
+        dev = self.device
+        if self.partition is not None:
+            # the tenant sees only its memory slice, not the whole HBM
+            import dataclasses
+            dev = dataclasses.replace(
+                dev, hbm_bytes=dev.hbm_bytes * self.partition.mem_fraction)
+        return dm.fits_memory(dev, self.profile, bs, mtl)
+
+    def power_terms(self, bs: int, mtl: int) -> tuple:
+        """(total_w, dynamic_w) this executor's slice draws at (bs, mtl).
+
+        Per-slice pricing (device_model.slice_power): a partitioned tenant
+        draws its share of the idle floor plus share-scaled dynamic power on
+        the partition latency law; a time-share tenant draws power_share of
+        both.  dynamic_w = total_w - share * idle_w lets the cluster charge
+        the idle floor ONCE per powered device instead of once per tenant.
+        """
+        key = (bs, mtl)
+        terms = self._power_cache.get(key)
+        if terms is None:
+            ts = self.partition
+            if ts is not None:
+                share = ts.share
+                total = dm.slice_power(self.device, self.profile, bs, mtl,
+                                       share=share, inv_share=ts.inv_share,
+                                       tenants=ts.tenants,
+                                       isolation=ts.isolation)
+            else:
+                share = self.power_share
+                total = dm.slice_power(self.device, self.profile, bs, mtl,
+                                       share=share)
+            terms = (total, total - share * self.device.idle_w)
+            self._power_cache[key] = terms
+        return terms
+
+    # -- execution ----------------------------------------------------------
+    def run_step(self, bs: int, mtl: int) -> dict:
+        """Simulate one synchronized step of all MTL instances."""
+        mean = self.mean_latency(bs, mtl)
+        lat = float(self.sampler.sample(mean, n=1)[0])
+        self.clock += lat
+        items = bs * mtl
+        power, dyn = self.power_terms(bs, mtl)
+        return {
+            "step_time": lat,
+            "items": items,
+            "request_latencies": self.sampler.sample(lat, n=min(items, 64)),
+            "power_w": power,
+            "dynamic_power_w": dyn,
+            "throughput": items / lat,
+        }
+
+    # -- token engine --------------------------------------------------------
+    def token_step_latency(self, live_slots: int, mtl: int = 1,
+                           prefill_tenants: int = 0,
+                           extra_slots: float = 0.0) -> float:
+        """Mean decode-step latency with `live_slots` slots occupied.
+
+        A co-scheduled prefill ("cotenant" prefill mode) is priced as an
+        extra spatial tenant on TOP of any configured partition slice —
+        the same cross-tenant interference terms the partition model
+        calibrates against the paper's MTL curves.
+
+        `extra_slots` ("chunked" prefill mode) piggybacks a prefill chunk
+        into the step as fractional decode-token equivalents: the step is
+        priced as a batch of `live_slots + extra_slots` on the same grid
+        (the grids are float-polymorphic, so 16 + 0.0 prices bit-identical
+        to 16 — the default is an exact no-op)."""
+        key = (live_slots, mtl, prefill_tenants, extra_slots)
+        lat = self._tok_cache.get(key)
+        if lat is None:
+            ts = self.partition
+            lat = float(dm.token_latency_grid(
+                self.device, self.profile, [live_slots + extra_slots],
+                [mtl],
+                inv_share=ts.inv_share if ts is not None else 1.0,
+                tenants=(ts.tenants if ts is not None else 1)
+                + prefill_tenants,
+                isolation=ts.isolation if ts is not None else 0.0)[0, 0])
+            self._tok_cache[key] = lat
+        return lat
+
+    def run_token_step(self, live_slots: int, mtl: int = 1, *,
+                       prefill_tenants: int = 0,
+                       extra_slots: float = 0.0) -> dict:
+        """Simulate one decode step: every live slot emits one token (a
+        nonzero `extra_slots` also advances piggybacked prefill chunks —
+        priced into the step, not counted as output tokens)."""
+        mean = self.token_step_latency(live_slots, mtl, prefill_tenants,
+                                       extra_slots)
+        lat = float(self.sampler.sample(mean, n=1)[0])
+        self.clock += lat
+        tokens = live_slots * mtl
+        power, dyn = self.power_terms(live_slots, mtl)
+        return {
+            "step_time": lat,
+            "tokens": tokens,
+            "items": tokens,
+            "power_w": power,
+            "dynamic_power_w": dyn,
+            "throughput": tokens / lat,
+        }
+
+
+
+# Default batch buckets: dense at small sizes (where the scalers live), a
+# x1.5 / x2 ladder above — every (bs * mtl) rounds UP to one of these, so a
+# probing scaler touches O(log) distinct buckets instead of one per point.
+DEFAULT_BUCKETS = (1, 2, 4, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256,
+                   384, 512, 768, 1024, 1536, 2048, 3072, 4096)
+
+# fits() activation-estimate multiplier: per-item batch bytes amplified
+# through the network (activations, workspace, output buffers).
+ACT_MULT = 12.0
+PARAM_OVERHEAD = 1.3   # optimizer-free serving copy + allocator slack
+
+
+def tensor_leaves(tree) -> list:
+    """The tensors of a nested dict / list / tuple, in order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tensor_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tensor_leaves(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def _tree_bytes(tree) -> float:
+    return float(sum(x.numel() * x.element_size() for x in tensor_leaves(tree)))
+
+
+def _constant_generation() -> int:
+    # tile autotuning is not ported yet: the tiles never change
+    return 0
+
+
+class RealExecutor:
+    """Wall-clock executor over a model callable.
+
+    `fn(params, batch)` consumes a batch dict whose tensors have leading
+    dim = instances*bs (instances folded in by the caller via make_batch).
+
+    Bucketing: `run_step(bs, mtl)` rounds bs*mtl up to a bucket, warms that
+    bucket up once (one timed run) and reuses its batch for every operating
+    point that lands in the bucket (padding rows are masked out of the
+    throughput accounting — only real items count).
+    """
+
+    def __init__(self, fn: Callable, params, make_batch: Callable,
+                 idle_w: float = 50.0, peak_w: float = 250.0, *,
+                 mem_bytes: Optional[float] = None,
+                 act_bytes_per_item: Optional[float] = None,
+                 buckets: Sequence[int] = DEFAULT_BUCKETS,
+                 tile_generation: Optional[Callable[[], int]] = None,
+                 kv_bytes_per_item: float = 0.0):
+        self.fn = fn
+        self.params = params
+        self.make_batch = make_batch
+        self.idle_w = idle_w
+        self.peak_w = peak_w
+        self.mem_bytes = mem_bytes
+        self.act_bytes_per_item = act_bytes_per_item
+        self.kv_bytes_per_item = kv_bytes_per_item
+        self.buckets = tuple(sorted(buckets))
+        # bucket items -> (batch, tuned-tile generation); a generation bump
+        # makes resident entries stale — evicted and re-warmed, never
+        # served
+        self._exec: dict = {}
+        self._tile_generation = tile_generation or _constant_generation
+        self._param_bytes: Optional[float] = None
+        leaves = tensor_leaves(params)
+        self.device = leaves[0].device if leaves else torch.device("cpu")
+        self.cache_stats = ExecCacheStats()
+        self._pending_compile = 0.0      # warm-up seconds not yet charged
+        self.partition = None            # TenantSlice: capped-batch proxy
+        self.clock = 0.0
+
+    def set_partition(self, ts) -> None:
+        """Spatial-partition proxy: a slice is emulated by inflating the
+        measured wall clock with the slice's calibrated slowdown
+        (`TenantSlice.slowdown`); the raw wall measurement is still
+        reported (``wall_step_time``)."""
+        self.partition = ts
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- capacity -----------------------------------------------------------
+    def bucket(self, n: int) -> int:
+        """Smallest bucket >= n (or n itself beyond the largest bucket)."""
+        for b in self.buckets:
+            if b >= n:
+                return b
+        return n
+
+    @property
+    def param_bytes(self) -> float:
+        if self._param_bytes is None:    # fits() runs per scaler candidate
+            self._param_bytes = _tree_bytes(self.params)
+        return self._param_bytes
+
+    def _batch_bytes_per_item(self) -> float:
+        if self.act_bytes_per_item is None:
+            self.act_bytes_per_item = _tree_bytes(self.make_batch(1)) * ACT_MULT
+        return self.act_bytes_per_item
+
+    def fits(self, bs: int, mtl: int) -> bool:
+        """Memory-aware admission when a `mem_bytes` budget is configured
+        (param bytes + per-item activation estimate at the BUCKETED batch,
+        since that is the shape actually run; plus `kv_bytes_per_item` per
+        live slot); the historical hard cap `bs * mtl <= 4096` when no
+        budget is given."""
+        n = bs * mtl
+        if self.mem_bytes is None:
+            return n <= 4096
+        need = (self.param_bytes * PARAM_OVERHEAD
+                + self.bucket(n) * self._batch_bytes_per_item()
+                + n * self.kv_bytes_per_item)
+        return need <= self.mem_bytes
+
+    # -- bucket cache -------------------------------------------------------
+    def _get(self, n_bucket: int):
+        entry = self._exec.get(n_bucket)
+        if entry is not None:
+            if entry[1] == int(self._tile_generation()):
+                self.cache_stats.hits += 1
+                return entry
+            # warmed up under superseded tile sizes: evict, never serve
+            del self._exec[n_bucket]
+            self.cache_stats.stale_evictions += 1
+        self.cache_stats.misses += 1
+        t0 = time.perf_counter()
+        batch = self.make_batch(n_bucket)
+        self.fn(self.params, batch)      # warm-up: allocator, kernel builds
+        self._sync()
+        dt = time.perf_counter() - t0
+        self.cache_stats.compile_time_s += dt
+        self._pending_compile += dt
+        entry = (batch, int(self._tile_generation()))
+        self._exec[n_bucket] = entry
+        return entry
+
+    # -- migration instrumentation -------------------------------------------
+    def shutdown(self) -> float:
+        """Drop the warmed-up buckets (the 'kill' half of a migration's
+        kill+relaunch round) and return the seconds it took."""
+        t0 = time.perf_counter()
+        self._exec.clear()
+        self._pending_compile = 0.0
+        return time.perf_counter() - t0
+
+    def warmup(self, bs: int, mtl: int) -> float:
+        """Warm up the bucket for (bs, mtl) ahead of serving and return the
+        seconds it took (0.0 on a cache hit).  The pending charge is
+        consumed here so the caller charging it as a stall does not
+        double-charge the next step."""
+        self._get(self.bucket(bs * mtl))
+        dt = self._pending_compile
+        self._pending_compile = 0.0
+        return dt
+
+    # -- pricing ------------------------------------------------------------
+    def mean_latency(self, bs: int, mtl: int, iters: int = 3) -> float:
+        batch, _ = self._get(self.bucket(bs * mtl))
+        self._sync()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            self.fn(self.params, batch)
+        self._sync()
+        wall = (time.perf_counter() - t0) / iters
+        if self.partition is not None:
+            return wall * self.partition.proxy_slowdown()
+        return wall
+
+    # -- execution ----------------------------------------------------------
+    def run_step(self, bs: int, mtl: int) -> dict:
+        nb = self.bucket(bs * mtl)
+        batch, gen = self._get(nb)
+        comp = self._pending_compile
+        self._pending_compile = 0.0
+        self._sync()
+        t0 = time.perf_counter()
+        self.fn(self.params, batch)
+        self._sync()
+        wall = time.perf_counter() - t0
+        slowdown = (self.partition.proxy_slowdown()
+                    if self.partition is not None else 1.0)
+        lat = wall * slowdown
+        if gen != int(self._tile_generation()):
+            # a tuning landed between the cache lookup and this serve: count
+            # it (steady-state serving asserts ZERO) and evict
+            self.cache_stats.stale_hits += 1
+            self._exec.pop(nb, None)
+        self.clock += lat + comp
+        items = bs * mtl                 # bucket padding rows do not count
+        return {
+            "step_time": lat,
+            "items": items,
+            "compile_time": comp,
+            "bucket_items": nb,
+            "wall_step_time": wall,
+            "partition_slowdown": slowdown,
+            "request_latencies": np.full(min(items, 64), lat),
+            "power_w": self.peak_w * 0.6,
+            "dynamic_power_w": max(self.peak_w * 0.6 - self.idle_w, 0.0),
+            "throughput": items / lat,
+        }

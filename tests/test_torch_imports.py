@@ -1,0 +1,72 @@
+"""Import hygiene of the port: ``src/repro_torch`` and ``chip_smoke.py``
+import neither JAX nor the JAX package, the port imports with both blocked,
+and its entry points default to the GPU and refuse to run quietly on the
+CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_no_jax_and_no_reference(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _forbidden(node.module or ""):
+                bad.append(node.module)
+    assert not bad, f"{path}: imports {bad}"
+
+
+def test_port_imports_with_jax_and_reference_blocked():
+    mods = ["repro_torch", "repro_torch.configs.base",
+            "repro_torch.models.api", "repro_torch.models.transformer",
+            "repro_torch.kernels.flash_attention.ops",
+            "repro_torch.kernels.decode_attention.ops",
+            "repro_torch.serving.executor", "repro_torch.serving.engine",
+            "repro_torch.core.controller", "repro_torch.launch.serve"]
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[m] = None\n"
+            + "".join(f"import {m}\n" for m in mods)
+            + "from repro_torch.configs.base import all_configs\n"
+            "assert len(all_configs()) == 10\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_entry_points_default_to_the_gpu():
+    from repro_torch import resolve_device
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import api
+    cfg = get_config("smollm_360m", tiny=True)
+    assert resolve_device("cpu").type == "cpu"
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.init_params(cfg)
+    with pytest.raises(RuntimeError):
+        api.init_cache(cfg, 1, 8)
+    assert api.init_params(cfg, device="cpu")["embed"].device.type == "cpu"
