@@ -4,18 +4,23 @@
 
 Five phases, any failure fatal:
   1. toolchain: torch / CUDA / nvcc versions, the card, TF32 off;
-  2. build the CUDA kernels from src/repro_torch/kernels/csrc with nvcc;
+  2. build the three CUDA kernels from src/repro_torch/kernels/csrc with
+     nvcc, one process per source, all started together;
   3. kernels: each kernel against its plain PyTorch version over the
-     reference case lists and the shapes of the serving path (float32 at
-     2e-5, bfloat16 at 2e-2), then timed beside its plain version, one
-     PyTorch library call and its bound;
-  4. model: full-width SmolLM-360M (random weights from a seed), prefill
-     8 x 512 and decode steps through the kernels, held against the plain
-     path on the card (float32 at 1e-4; bf16 at the JAX bounds or twice
-     the plain path's own rounding floor, whichever is larger; argmax equal
-     but at near-ties), with the kernels' launch counts checked;
+     reference case lists and the shapes of the serving paths (attention:
+     float32 at 2e-5, bfloat16 at 2e-2; SSD scan: float32 or bfloat16 B/C
+     at 2e-3), then timed beside its plain version, one PyTorch library
+     call where there is one, and its bound;
+  4. model: full-width SmolLM-360M, Mamba2-1.3B and Zamba2-1.2B (random
+     weights from a seed), prefill 8 x 512 and decode steps through the
+     kernels, held against the plain path on the card (float32 at 1e-4;
+     bf16 at the JAX bounds or twice the plain path's own rounding floor,
+     whichever is larger; argmax equal but at near-ties), with the
+     kernels' launch counts checked;
   5. serving: RealExecutor + DNNScalerController (hybrid) + ServingEngine
-     at full width, with zero bucket-cache misses after warm-up.
+     at full width, SmolLM-360M (flash + decode attention) and then
+     Mamba2-1.3B (SSD scan), each with zero bucket-cache misses after
+     warm-up and its kernels' launches counted over the engine's run.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 the device JSON line.  Exits non-zero without a CUDA device.
@@ -52,14 +57,18 @@ from repro_torch.kernels.flash_attention import \
 from repro_torch.kernels.flash_attention import \
     ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan as k4  # noqa: E402
 from repro_torch.launch.serve import real_executor_for  # noqa: E402
 from repro_torch.models import api, layers  # noqa: E402
+from repro_torch.models.mamba import ssd_chunked  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.executor import tensor_leaves  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BPS = 3.35e12          # H100 SXM device memory, bytes/s (data sheet)
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak, FLOP/s
+F32_FLOPS = 67e12          # H100 SXM float32 peak outside the tensor cores
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 # (B, Tq, Tk, H, KV, hd, causal, window, cap): the reference's FLASH_CASES,
@@ -92,8 +101,23 @@ KVMAJOR_CASES = [
     (1, 256, 8, 2, 64, 0, None, None),
 ]
 
-# the serving path's shapes: SmolLM-360M, 8 prompts of 512 tokens, 32 steps
+# (B, T, H, P, N, chunk): the reference's SSD_CASES (tests/test_kernels.py),
+# then the chunks 300- and 700-token prompts give (not multiples of the
+# kernel's 64-row tile); phase_ssd adds the Mamba2-1.3B and Zamba2-1.2B
+# serving shapes
+SSD_CASES = [
+    (2, 256, 4, 64, 32, 64),
+    (1, 128, 8, 32, 16, 128),
+    (2, 512, 2, 64, 64, 128),
+    (1, 256, 64, 64, 128, 64),
+    (2, 300, 8, 64, 128, 300),
+    (1, 700, 4, 32, 64, 350),
+]
+SSD_TOL = 2e-3             # the reference's bound for the chunked scan
+
+# the serving paths' shapes: 8 prompts of 512 tokens, 32 decode steps
 ARCH, BATCH, PROMPT, STEPS = "smollm_360m", 8, 512, 32
+SSM_ARCH, HYBRID_ARCH = "mamba2_1p3b", "zamba2_1p2b"
 
 
 def _rand(gen, shape, dtype, scale=0.5):
@@ -122,8 +146,47 @@ def _time_ms(fn, iters: int = 20) -> float:
     return a.elapsed_time(b) / iters
 
 
-def _bound(nbytes: float, flops: float) -> tuple:
-    t_bytes, t_ops = nbytes / HBM_BPS, flops / BF16_FLOPS
+def _wall_ms(fn, iters: int = 3) -> float:
+    """Host clock around ``iters`` runs ended by a synchronise, after one
+    warm-up run."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def _k4_ms_in(fn) -> float:
+    """Device time of the SSD-scan launches inside one run of ``fn``: CUDA
+    events recorded on the stream just before and after each launch."""
+    real, pairs = k4.ssd_scan_fwd, []
+
+    def timed(*args, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = real(*args, **kw)
+        ev[1].record()
+        pairs.append(ev)
+        return out
+
+    k4.ssd_scan_fwd = timed
+    try:
+        fn()
+    finally:
+        k4.ssd_scan_fwd = real
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs)
+
+
+def _bound(nbytes: float, *work) -> tuple:
+    """Least time in ms for moving ``nbytes`` and doing ``work``, pairs of
+    (FLOP, peak FLOP/s) whose times add up; and which of the two bounds
+    it."""
+    t_bytes = nbytes / HBM_BPS
+    t_ops = sum(flops / peak for flops, peak in work)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -160,8 +223,8 @@ def phase_toolchain() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    build.build("flash_attention", "decode_attention", force=True)
-    print(f"[build] nvcc sm_90a, both sources in parallel: "
+    build.build("flash_attention", "decode_attention", "ssd_scan", force=True)
+    print(f"[build] nvcc sm_90a, three sources in parallel: "
           f"{time.perf_counter() - t0:.1f}s")
     for name, log in build.PTXAS_REPORT.items():
         for line in log.splitlines():
@@ -246,7 +309,7 @@ def phase_kernels() -> dict:
         qt, kt, vt, is_causal=True, enable_gqa=True))
     pairs = BATCH * H * PROMPT * (PROMPT + 1) // 2      # unmasked (q, k) pairs
     f_bound, f_by = _bound(2 * (2 * q.numel() + 2 * k.numel()),
-                           4 * pairs * hd)
+                           (4 * pairs * hd, BF16_FLOPS))
 
     pos = S - 1
     qd, kc, vc = _qkv(gen, (BATCH, H, hd), (BATCH, KV, S, hd), dt)
@@ -262,7 +325,7 @@ def phase_kernels() -> dict:
     d_lib = _time_ms(lambda: F.scaled_dot_product_attention(
         qd[:, :, None], kc[:, :, :live], vc[:, :, :live], enable_gqa=True))
     d_bound, d_by = _bound(2 * (2 * qd.numel() + 2 * BATCH * KV * live * hd),
-                           4 * BATCH * H * live * hd)
+                           (4 * BATCH * H * live * hd, BF16_FLOPS))
     print(f"[kernels] flash at {slice_flash[:6]} bf16: kernel {f_ms:.4f} ms, "
           f"plain {f_plain:.4f} ms, sdpa {f_lib:.4f} ms, bound {f_bound:.4f} "
           f"ms ({f_by}); float32 (CUDA-core body) kernel {f32_ms:.4f} ms, "
@@ -287,6 +350,100 @@ def phase_kernels() -> dict:
     }
 
 
+def _ssd_inputs(gen, case, bc_dtype) -> tuple:
+    """The reference test's distributions: x, dt (softplus'd), A
+    (negative), Bm, Cm; B and C in ``bc_dtype``."""
+    B, T, H, P, N, _ = case
+    x = _rand(gen, (B, T, H, P), torch.float32)
+    dt = F.softplus(_rand(gen, (B, T, H), torch.float32, 1.0))
+    A = -torch.exp(_rand(gen, (H,), torch.float32))
+    return (x, dt, A, _rand(gen, (B, T, N), bc_dtype),
+            _rand(gen, (B, T, N), bc_dtype))
+
+
+def _ssd_work(case, bc_dtype) -> tuple:
+    """(bytes, work) the scan needs, ``work`` as ``_bound`` takes it.  Each
+    input is read and each output written once; a multiply-add counts as
+    2, over the causal half of each chunk's (t, s) pairs.  C Bᵀ is the same
+    for every head, so it counts once per (batch, chunk), at the peak for
+    B and C's dtype (bf16 on the tensor cores, with float32 sums).  The
+    products with xdt and with the state are float32 (67 TFLOP/s); the
+    entering-state term counts only after the first chunk, where the state
+    entering is zero."""
+    B, T, H, P, N, c = case
+    nc = T // c
+    nbytes = 4 * (2 * B * H * T * P + B * H * T + B * H * P * N) \
+        + 2 * bc_dtype.itemsize * B * T * N
+    pairs = nc * c * (c + 1) // 2         # causal (t, s) pairs per sequence
+    bc_peak = BF16_FLOPS if bc_dtype == torch.bfloat16 else F32_FLOPS
+    scores = (2 * B * pairs * N, bc_peak)
+    f32 = (2 * B * H * (pairs * P + (2 * nc - 1) * c * P * N), F32_FLOPS)
+    return nbytes, (scores, f32)
+
+
+def phase_ssd() -> dict:
+    """K4 against its plain version over the reference's cases and the two
+    serving shapes, with float32 and bfloat16 B/C, at 2e-3; timed at the
+    Mamba2 serving shape with bf16 B/C, as the bf16 model gives them."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(4)
+    shapes = {}
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        cfg = get_config(arch)
+        H, P = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim, cfg.ssm_head_dim
+        shapes[arch] = (BATCH, PROMPT, H, P, cfg.ssm_state_size,
+                        min(cfg.ssm_chunk_size, PROMPT))
+    worst = {}
+    for bc in (torch.float32, torch.bfloat16):
+        errs = []
+        for case in SSD_CASES + list(shapes.values()):
+            x, dt, A, Bm, Cm = _ssd_inputs(gen, case, bc)
+            y, st = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=case[-1])
+            yr, sr = ssd_chunked(x, dt, A, Bm, Cm, case[-1])
+            torch.cuda.synchronize()
+            for got, want in ((y, yr), (st, sr)):
+                assert torch.isfinite(got).all(), ("ssd", case, bc)
+                assert torch.allclose(got, want, atol=SSD_TOL, rtol=SSD_TOL), \
+                    ("ssd kernel disagrees", case, bc, _maxerr(got, want))
+            errs.append((max(_maxerr(y, yr), _maxerr(st, sr)),
+                         _relerr(y, yr)))
+        worst[bc] = (max(e for e, _ in errs), max(r for _, r in errs),
+                     len(errs))
+    (f_abs, f_rel, n), (b_abs, b_rel, _) = (worst[torch.float32],
+                                            worst[torch.bfloat16])
+    print(f"[kernels] ssd_scan: max |kernel - plain| (y and state) over {n} "
+          f"cases: float32 B/C {f_abs:.3e} ({f_rel:.3e} of mean |plain y|), "
+          f"bfloat16 B/C {b_abs:.3e} ({b_rel:.3e}); tol {SSD_TOL:g}")
+
+    case = shapes[SSM_ARCH]
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, case, torch.bfloat16)
+    chunk = case[-1]
+    y, st = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    yr, sr = ssd_chunked(x, dt, A, Bm, Cm, chunk)
+    err = max(_maxerr(y, yr), _maxerr(st, sr))
+    xdt = (x * dt[..., None]).transpose(1, 2).contiguous()
+    dA = (dt * A).transpose(1, 2)[..., None].contiguous()
+    ms = _time_ms(lambda: k4.ssd_scan_fwd(xdt, dA, Bm, Cm, chunk=chunk))
+    wrap = _time_ms(lambda: ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk))
+    plain = _time_ms(lambda: ssd_chunked(x, dt, A, Bm, Cm, chunk))
+    nbytes, work = _ssd_work(case, torch.bfloat16)
+    bound, by = _bound(nbytes, *work)
+    (cb, _), (f32, _) = work
+    print(f"[kernels] ssd_scan at (B, T, H, P, N, chunk) {case} bf16 B/C: "
+          f"kernel {ms:.4f} ms (through the model's wrapper, with xdt and dA "
+          f"formed: {wrap:.4f} ms), plain {plain:.4f} ms (ssd_chunked on "
+          f"the wrapper's inputs), bound {bound:.4f} ms ({by}: C B^T "
+          f"{cb / 1e9:.3f} GFLOP once per batch and chunk at the bf16 "
+          f"{BF16_FLOPS / 1e12:.0f} TFLOP/s, {f32 / 1e9:.3f} GFLOP at the "
+          f"float32 {F32_FLOPS / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB); "
+          f"no single PyTorch call computes the scan")
+    return dict(name="ssd_scan_fwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+                replaces="src/repro/kernels/ssd_scan/ssd_scan.py:80",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                bound_by=by, library_ms=None)
+
+
 def _bound_used(got, want, atol, rtol) -> float:
     """Share of the bound |got - want| <= atol + rtol |want| used (<= 1
     passes)."""
@@ -309,23 +466,51 @@ def _check_logits(got, want, atol, rtol, what) -> int:
     return int(diff.sum())
 
 
-def _clone(cache) -> list:
-    return [{k: v.clone() for k, v in g.items()} for g in cache]
+def _clone(tree):
+    """A copy of a cache: nested dicts and lists of tensors."""
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone(v) for v in tree]
+    return tree.clone()
 
 
-def _model_run(dtype: str, steps: int) -> None:
+# (attention layers, Mamba blocks) of each full-width model: K1 launches per
+# prefill and K2 per decode step, K4 launches per prefill
+PATH_COUNTS = {ARCH: (32, 0), SSM_ARCH: (0, 48), HYBRID_ARCH: (6, 32)}
+
+
+def _path_counts(cfg) -> tuple:
+    attn = mamba = 0
+    for kind, count in cfg.layer_groups:
+        if kind == "mamba":
+            mamba += count
+        elif kind == "hybrid_super":
+            mamba += count * cfg.hybrid_attn_every
+            attn += count
+        elif kind == "local_global":
+            attn += 2 * count
+        else:
+            attn += count
+    return attn, mamba
+
+
+def _model_run(arch: str, dtype: str, steps: int) -> None:
     """Full-width model: the kernel path against the plain path on the same
     inputs.  Each decode step starts both paths from the kernel path's
     cache, so a step compares the step alone.
 
     float32: atol = rtol = 1e-4; the two paths differ only in summation
     order, and a bf16 computation anywhere would miss this by far.
-    bfloat16: at 32 layers any change of rounding grows chaotically, so the
-    bound is the larger of the JAX bound for 2-layer models (3e-2 prefill,
-    5e-2 decode, absolute) and twice the gap, measured in this run, between
-    the plain path and itself with 64-key instead of 512-key attention
-    blocks (same math, other rounding)."""
-    cfg = get_config(ARCH).replace(dtype=dtype)
+    bfloat16: over tens of layers any change of rounding grows chaotically,
+    so the bound is the larger of the JAX bound for 2-layer models (3e-2
+    prefill, 5e-2 decode, absolute) and twice the gap, measured in this
+    run, between the plain path and itself with 64-key instead of 512-key
+    attention blocks and 128-token instead of 256-token SSD chunks (same
+    math, other rounding)."""
+    cfg = get_config(arch).replace(dtype=dtype)
+    n_attn, n_mamba = _path_counts(cfg)
+    assert (n_attn, n_mamba) == PATH_COUNTS[arch], (arch, n_attn, n_mamba)
     cfg_k, cfg_x = cfg.replace(kernel_impl="pallas"), cfg.replace(kernel_impl="xla")
     params = api.init_params(cfg_k, seed=0)
     nparam = sum(x.numel() for x in tensor_leaves(params))
@@ -339,17 +524,19 @@ def _model_run(dtype: str, steps: int) -> None:
     else:
         saved, layers.DEFAULT_BLOCK_K = layers.DEFAULT_BLOCK_K, 64
         try:
-            l64, _ = api.prefill(params, batch, cfg_x, capacity=cap)
+            l64, _ = api.prefill(params, batch,
+                                 cfg_x.replace(ssm_chunk_size=128),
+                                 capacity=cap)
         finally:
             layers.DEFAULT_BLOCK_K = saved
         floor, rtol = _maxerr(l64, lx), 0.0
         atol = {"prefill": max(3e-2, 2 * floor),
                 "decode": max(5e-2, 2 * floor)}
-    k1.LAUNCHES = k2.LAUNCHES = 0
+    k1.LAUNCHES = k2.LAUNCHES = k4.LAUNCHES = 0
     lk, ck = api.prefill(params, batch, cfg_k, capacity=cap)
     torch.cuda.synchronize()
-    assert (k1.LAUNCHES, k2.LAUNCHES) == (cfg.num_layers, 0), \
-        ("prefill launches", k1.LAUNCHES, k2.LAUNCHES)
+    assert (k1.LAUNCHES, k2.LAUNCHES, k4.LAUNCHES) == (n_attn, 0, n_mamba), \
+        ("prefill launches", k1.LAUNCHES, k2.LAUNCHES, k4.LAUNCHES)
     flips = _check_logits(lk, lx, atol["prefill"], rtol, "prefill logits")
     p_err, p_jax = _maxerr(lk, lx), _bound_used(lk, lx, 3e-2, 3e-2)
     d_err = d_jax = 0.0
@@ -360,17 +547,34 @@ def _model_run(dtype: str, steps: int) -> None:
         before = k2.LAUNCHES
         dk, ck = api.decode_step(params, ck, tok, pos, cfg_k)
         torch.cuda.synchronize()
-        assert k2.LAUNCHES - before == cfg.num_layers, ("decode launches", step)
-        assert k1.LAUNCHES == cfg.num_layers, "decode reached the flash kernel"
+        assert k2.LAUNCHES - before == n_attn, ("decode launches", step)
+        assert (k1.LAUNCHES, k4.LAUNCHES) == (n_attn, n_mamba), \
+            "decode reached a prefill kernel"
         flips += _check_logits(dk, dx, atol["decode"], rtol,
                                f"decode step {step}")
         d_err = max(d_err, _maxerr(dk, dx))
         d_jax = max(d_jax, _bound_used(dk, dx, 5e-2, 5e-2))
         tok = dk.argmax(-1).to(torch.int32)
         pos = pos + 1
+    counts = (k1.LAUNCHES, k2.LAUNCHES, k4.LAUNCHES)
+    if dtype == "bfloat16":    # the served dtype: time the kernel path
+        def run_prefill():
+            api.prefill(params, batch, cfg_k, capacity=cap)
+
+        pre_ms = _wall_ms(run_prefill)
+        step_ms = _wall_ms(lambda: api.decode_step(params, ck, tok, pos - 1,
+                                                   cfg_k))
+        share = ""
+        if n_mamba:
+            k4_ms = _k4_ms_in(run_prefill)
+            share = (f" (of which ssd_scan {k4_ms:.2f} ms of device time "
+                     f"over {n_mamba} launches, {k4_ms / pre_ms:.1%})")
+        print(f"[model] {cfg.name} bf16 kernel path, host clock around "
+              f"synchronised runs: prefill {BATCH}x{PROMPT} {pre_ms:.2f} ms"
+              f"{share}, decode step {step_ms:.2f} ms")
     bound = ("atol = rtol = 1e-4" if floor is None else
              f"atol {atol['prefill']:.3e} / {atol['decode']:.3e}, plain-path "
-             f"block floor {floor:.3e}")
+             f"rounding floor {floor:.3e}")
     print(f"[model] {cfg.name} full width ({nparam / 1e6:.1f}M params, "
           f"{cfg.num_layers} layers, {dtype}): prefill {BATCH}x{PROMPT} + "
           f"{steps} decode steps, kernel path vs plain path: max |dlogit| "
@@ -378,22 +582,26 @@ def _model_run(dtype: str, steps: int) -> None:
           f"JAX 2-layer bounds used: prefill {p_jax:.2f} (3e-2), decode "
           f"{d_jax:.2f} (5e-2); argmax differs on {flips} of "
           f"{BATCH * (steps + 1)} rows (near-ties only); launches flash "
-          f"{k1.LAUNCHES} decode {k2.LAUNCHES} (= {cfg.num_layers} per "
-          f"prefill, {cfg.num_layers} per decode step)")
+          f"{counts[0]} decode {counts[1]} ssd_scan {counts[2]} (= "
+          f"{n_attn} flash and {n_mamba} ssd_scan per prefill, {n_attn} "
+          f"decode per decode step)")
+    del params, ck, lk, lx
+    torch.cuda.empty_cache()
 
 
 def phase_model() -> None:
-    _model_run("float32", 4)
-    _model_run("bfloat16", STEPS)
+    for arch in (ARCH, SSM_ARCH, HYBRID_ARCH):
+        _model_run(arch, "float32", 4)
+        _model_run(arch, "bfloat16", STEPS)
 
 
-def phase_serving() -> dict:
-    """The main path: a user's serving run.  Kernel launch counts are read
-    over exactly the engine's run, after the buckets' warm-up, the SLO's
-    calibration and the profiler's probes."""
+def _serve(arch: str, max_bs: int, max_mtl: int, steps: int) -> dict:
+    """A user's serving run.  Kernel launch counts are read over exactly
+    the engine's run, after the buckets' warm-up, the SLO's calibration and
+    the profiler's probes."""
     t0 = time.perf_counter()
-    ex, cfg = real_executor_for(ARCH, prompt_len=PROMPT, new_tokens=STEPS)
-    max_bs, max_mtl = 64, 4
+    ex, cfg = real_executor_for(arch, prompt_len=PROMPT, new_tokens=STEPS)
+    n_attn, n_mamba = _path_counts(cfg)
     for n in sorted({ex.bucket(i) for i in range(1, max_bs * max_mtl + 1)}):
         ex.warmup(n, 1)
     warm_s = time.perf_counter() - t0
@@ -405,17 +613,18 @@ def phase_serving() -> dict:
                                max_bs=max_bs, max_mtl=max_mtl)
     eng = ServingEngine(ex, slo, instance_launch_s=0.2)
     torch.cuda.synchronize()
-    k1.LAUNCHES = k2.LAUNCHES = 0
-    acc = eng.run(ctrl, max_steps=40)
+    k1.LAUNCHES = k2.LAUNCHES = k4.LAUNCHES = 0
+    acc = eng.run(ctrl, max_steps=steps)
     torch.cuda.synchronize()
-    launches = {"flash": k1.LAUNCHES, "decode": k2.LAUNCHES}
+    launches = {"flash": k1.LAUNCHES, "decode": k2.LAUNCHES,
+                "ssd_scan": k4.LAUNCHES}
     s, batches = acc.summary(), len(acc.trace)
     act = ctrl.action()
     cs = ex.cache_stats
     print(f"[serving] {cfg.name} full width, {PROMPT}-token prompts + "
-          f"{STEPS} decode steps per request: warmed {warm_misses} buckets "
-          f"in {warm_s:.1f}s; base {base * 1e3:.1f} ms -> SLO "
-          f"{slo * 1e3:.1f} ms")
+          f"{STEPS} decode steps per request, buckets up to "
+          f"{max_bs * max_mtl}: warmed {warm_misses} buckets in "
+          f"{warm_s:.1f}s; base {base * 1e3:.1f} ms -> SLO {slo * 1e3:.1f} ms")
     print(f"[serving] approach={ctrl.approach} profiler picked "
           f"{ctrl.profile.approach}; steady(bs={act.bs}, mtl={act.mtl}); "
           f"throughput {s['throughput']:.2f} req/s; p95 "
@@ -423,15 +632,28 @@ def phase_serving() -> dict:
           f"exec-cache hits {cs.hits} misses {cs.misses} after warm-up")
     assert s["throughput"] > 0 and math.isfinite(s["p95_s"]), s
     assert cs.misses == 0, ("bucket-cache misses after warm-up", cs.misses)
-    assert launches == {"flash": cfg.num_layers * batches,
-                        "decode": cfg.num_layers * STEPS * batches}, launches
+    want = {"flash": n_attn * batches, "decode": n_attn * STEPS * batches,
+            "ssd_scan": n_mamba * batches}
+    assert launches == want and any(launches.values()), (launches, want)
+    per = ", ".join(f"{k} {v} ({v / s['items']:.3f} per served request)"
+                    for k, v in launches.items())
     print(f"[serving] kernel launches over the engine's run ({batches} "
-          f"served batches, {s['items']} served requests): flash "
-          f"{launches['flash']}, decode {launches['decode']}; per served "
-          f"request flash {launches['flash'] / s['items']:.3f}, decode "
-          f"{launches['decode'] / s['items']:.3f} ({cfg.num_layers} flash "
-          f"and {cfg.num_layers * STEPS} decode per batch)")
+          f"served batches, {s['items']} served requests): {per}; per batch "
+          f"{n_attn} flash, {n_attn * STEPS} decode, {n_mamba} ssd_scan")
+    del ex, ctrl, eng
+    torch.cuda.empty_cache()
     return launches
+
+
+def phase_serving() -> dict:
+    """The main paths: SmolLM-360M (K1, K2), then Mamba2-1.3B (K4), each
+    with its own counts.  The Mamba2 run is cut to buckets up to 32 and 20
+    engine steps to keep the script near four minutes: its decode steps are
+    host-bound eager PyTorch, about twice SmolLM's."""
+    smollm = _serve(ARCH, 64, 4, 40)
+    mamba = _serve(SSM_ARCH, 8, 4, 20)
+    return {"flash": smollm["flash"], "decode": smollm["decode"],
+            "ssd_scan": mamba["ssd_scan"]}
 
 
 def main() -> None:
@@ -439,9 +661,11 @@ def main() -> None:
     smi = phase_toolchain()
     phase_build()
     rows = phase_kernels()
+    rows["ssd_scan"] = phase_ssd()
     phase_model()
     launches = phase_serving()
-    kernels = [dict(rows[n], launches=launches[n]) for n in ("flash", "decode")]
+    kernels = [dict(rows[n], launches=launches[n])
+               for n in ("flash", "decode", "ssd_scan")]
     print(f"[done] {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,0 +1,83 @@
+"""Public wrapper of the SSD-scan kernel, in the model's layout.
+
+Counterpart of ``repro.kernels.ssd_scan.ops.ssd_scan``: it forms
+``xdt = x * dt`` and ``dA = dt * A`` in float32 and moves heads before time,
+as the reference does outside its ``pallas_call``, and moves y back.  A CPU
+tensor goes to the plain chunked version (``models.mamba.ssd_chunked``, in
+float32); a CUDA tensor launches the Hopper kernel.  Anything the kernel does not take (dtype,
+head or state size, chunk, layout, device) raises; nothing falls back.
+
+``chunk=None`` takes ``DEFAULT_CHUNK``, cut to the largest divisor of T.
+The reference consults its autotune cache first; that is not ported, so
+this is the reference's choice on an empty cache.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.ssd_scan import ssd_scan as _kernel
+from repro_torch.models.mamba import ssd_chunked
+
+DEFAULT_CHUNK = 128
+
+
+def _largest_dividing_chunk(T: int, chunk: int) -> int:
+    chunk = min(chunk, T)
+    while T % chunk:
+        chunk -= 1
+    return chunk
+
+
+def _check(x, dt, A, Bm, Cm, chunk: int) -> None:
+    if x.ndim != 4 or Bm.ndim != 3 or Bm.shape != Cm.shape:
+        raise ValueError(f"ssd_scan: shapes {tuple(x.shape)}, "
+                         f"{tuple(Bm.shape)}, {tuple(Cm.shape)}")
+    B, T, H, P = x.shape
+    N = Bm.shape[-1]
+    if tuple(dt.shape) != (B, T, H) or tuple(A.shape) != (H,) \
+            or tuple(Bm.shape[:2]) != (B, T):
+        raise ValueError("ssd_scan: x, dt, A, Bm and Cm disagree on batch, "
+                         "time or heads")
+    if Bm.dtype != Cm.dtype or Bm.dtype not in _kernel._DTYPES:
+        raise ValueError(f"ssd_scan: Bm/Cm dtype {Bm.dtype}/{Cm.dtype} "
+                         "(float32 or bfloat16, both alike)")
+    if P not in _kernel.HEAD_DIMS or N not in _kernel.STATE_SIZES:
+        raise ValueError(f"ssd_scan: head_dim {P} / state size {N} (head_dim "
+                         f"in {_kernel.HEAD_DIMS}, state in "
+                         f"{_kernel.STATE_SIZES})")
+    if not 1 <= chunk <= _kernel.MAX_CHUNK or T % chunk:
+        raise ValueError(f"ssd_scan: chunk {chunk} must divide T={T} and be "
+                         f"at most {_kernel.MAX_CHUNK}")
+    if Bm.stride(-1) != 1 or Cm.stride(-1) != 1:
+        raise ValueError("ssd_scan: Bm and Cm need a contiguous last dim")
+    if len({t.device for t in (x, dt, A, Bm, Cm)}) != 1:
+        raise ValueError("ssd_scan: tensors on different devices")
+
+
+def ssd_scan(
+    x: torch.Tensor,      # (B, T, H, P)
+    dt: torch.Tensor,     # (B, T, H)  (already softplus'd)
+    A: torch.Tensor,      # (H,) negative reals
+    Bm: torch.Tensor,     # (B, T, N)
+    Cm: torch.Tensor,     # (B, T, N)
+    *,
+    chunk: Optional[int] = None,
+) -> tuple:
+    """Returns (y (B,T,H,P) f32, final_state (B,H,P,N) f32), from a zero
+    initial state."""
+    T = x.shape[1]
+    chunk = (_largest_dividing_chunk(T, DEFAULT_CHUNK) if chunk is None
+             else min(chunk, T))
+    _check(x, dt, A, Bm, Cm, chunk)
+    if x.device.type == "cpu":
+        return ssd_chunked(x.float(), dt.float(), A.float(), Bm, Cm, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan: no kernel for device {x.device}")
+    dt32 = dt.float()
+    xdt = (x.float() * dt32[..., None]).transpose(1, 2).contiguous()
+    dA = (dt32 * A.float()).transpose(1, 2)[..., None].contiguous()
+    y, state = _kernel.ssd_scan_fwd(xdt, dA, Bm, Cm, chunk=chunk)
+    return y.transpose(1, 2), state

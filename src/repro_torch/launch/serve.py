@@ -2,15 +2,18 @@
 controller and report the approach, steady knobs, throughput and p95.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --real
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --real
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
         --tiny --real --device cpu --prompt-len 32 --new-tokens 4
 
 Counterpart of ``repro.launch.serve``'s ``--arch ... --real`` path.  A
 served request is a prompt prefill plus greedy decode steps (the reference
-served ``train_loss`` here, which reaches no attention kernel); the model
-runs with ``kernel_impl="pallas"``, which in this package means the Hopper
-kernels on a CUDA device and their plain versions on the CPU.  The paper-job,
-cluster, churn, token-engine and partition modes are not ported yet.
+served ``train_loss`` here, which reaches no kernel); the model runs with
+``kernel_impl="pallas"``, which in this package means the Hopper kernels
+on a CUDA device (attention for the dense models and Zamba2's shared block,
+the SSD scan for every Mamba block's prefill) and their plain versions on
+the CPU.  The paper-job, cluster, churn, token-engine and partition modes
+are not ported yet.
 """
 
 from __future__ import annotations

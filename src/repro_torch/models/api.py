@@ -1,4 +1,5 @@
-"""Model API — counterpart of ``repro.models.api`` for the dense decoders.
+"""Model API — counterpart of ``repro.models.api`` for the decoder-only models
+(dense, SSM and hybrid; MoE layers raise in ``transformer``).
 
   init_params(cfg, seed=0, device=None)             -> params dict
   params_from_jax(tree, device=None)                -> params dict
@@ -23,7 +24,8 @@ from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.models import transformer
 
 
-def _dense_only(cfg: ModelConfig) -> None:
+def _decoder_only(cfg: ModelConfig) -> None:
+    """Encoder-decoder and frontend (audio, vision) models are not ported."""
     if cfg.is_encoder_decoder or cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: only decoder-only text models are ported so far")
@@ -32,7 +34,7 @@ def _dense_only(cfg: ModelConfig) -> None:
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random parameters drawn from a ``torch.Generator`` seeded with
     ``seed`` on the target device."""
-    _dense_only(cfg)
+    _decoder_only(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -55,20 +57,20 @@ def params_from_jax(tree, device=None):
 
 
 def prefill(params, batch, cfg: ModelConfig, capacity: int):
-    _dense_only(cfg)
+    _decoder_only(cfg)
     return transformer.prefill(params, batch, cfg, capacity)
 
 
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
                 windowed: bool = False):
-    _dense_only(cfg)
+    _decoder_only(cfg)
     return transformer.decode_step(params, cache, tokens, pos, cfg,
                                    windowed=windowed)
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
                windowed: bool = False, device=None):
-    _dense_only(cfg)
+    _decoder_only(cfg)
     return transformer.init_cache(cfg, batch, capacity, windowed=windowed,
                                   device=resolve_device(device))
 
@@ -76,7 +78,7 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
 def make_batch(cfg: ModelConfig, shape: InputShape, seed: int = 0,
                device=None) -> dict:
     """Random prompt tokens (global_batch, seq_len) from a seeded generator."""
-    _dense_only(cfg)
+    _decoder_only(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)

@@ -1,28 +1,31 @@
-"""Decoder-only transformer assembly for the dense layer groups.
+"""Decoder-only transformer assembly for the dense, SSM and hybrid groups.
 
-Counterpart of ``repro.models.transformer`` for the ``attn``, ``swa`` and
-``local_global`` groups.  Each group's parameters keep the reference's
-layout, stacked on a leading layer axis; a Python loop over that axis takes
-the place of ``lax.scan``.  Two modes:
+Counterpart of ``repro.models.transformer`` for the ``attn``, ``swa``,
+``local_global``, ``mamba`` and ``hybrid_super`` groups.  Each group's
+parameters keep the reference's layout, stacked on a leading layer axis
+(Zamba2's Mamba stack on two: super-block, then block; its shared block
+unstacked); a Python loop over that axis takes the place of ``lax.scan``.
+Two modes:
 
-  prefill — full-sequence forward, returns last-position logits + KV cache
+  prefill — full-sequence forward, returns last-position logits + cache
   decode  — one token against the cache (the serving hot path)
 
-MoE, Mamba and the hybrid groups are not ported yet.
+Both write the cache in place.  MoE layers are not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ATTN, SWA, torch_dtype
+from repro_torch.configs.base import ATTN, MAMBA, SWA, torch_dtype
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 
-DENSE_KINDS = (ATTN, SWA, "local_global")
+KINDS = (ATTN, SWA, "local_global", MAMBA, "hybrid_super")
 
 
 def _check_kind(kind: str) -> None:
-    if kind not in DENSE_KINDS:
+    if kind not in KINDS:
         raise NotImplementedError(
             f"layer group {kind!r} is not ported to repro_torch yet")
 
@@ -34,42 +37,44 @@ def _normal(gen, shape, dt, device):
     return (torch.randn(shape, generator=gen, device=device) * 0.02).to(dt)
 
 
-def _init_attn_block(gen, cfg, count, dt, device) -> dict:
+def _init_attn_block(gen, cfg, prefix, dt, device) -> dict:
+    """Stacked on ``prefix``: ``(count,)``, or ``()`` for Zamba2's shared
+    block."""
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p = {
-        "wq": _normal(gen, (count, d, H, hd), dt, device),
-        "wk": _normal(gen, (count, d, KV, hd), dt, device),
-        "wv": _normal(gen, (count, d, KV, hd), dt, device),
-        "wo": _normal(gen, (count, H, hd, d), dt, device),
-        "norm": torch.ones((count, d), dtype=dt, device=device),
+        "wq": _normal(gen, (*prefix, d, H, hd), dt, device),
+        "wk": _normal(gen, (*prefix, d, KV, hd), dt, device),
+        "wv": _normal(gen, (*prefix, d, KV, hd), dt, device),
+        "wo": _normal(gen, (*prefix, H, hd, d), dt, device),
+        "norm": torch.ones((*prefix, d), dtype=dt, device=device),
     }
     if cfg.attention_bias:
-        p["bq"] = torch.zeros((count, H, hd), dtype=dt, device=device)
-        p["bk"] = torch.zeros((count, KV, hd), dtype=dt, device=device)
-        p["bv"] = torch.zeros((count, KV, hd), dtype=dt, device=device)
+        p["bq"] = torch.zeros((*prefix, H, hd), dtype=dt, device=device)
+        p["bk"] = torch.zeros((*prefix, KV, hd), dtype=dt, device=device)
+        p["bv"] = torch.zeros((*prefix, KV, hd), dtype=dt, device=device)
     if cfg.post_block_norm:
-        p["post_norm"] = torch.ones((count, d), dtype=dt, device=device)
+        p["post_norm"] = torch.ones((*prefix, d), dtype=dt, device=device)
     return p
 
 
-def _init_mlp(gen, cfg, count, dt, device) -> dict:
+def _init_mlp(gen, cfg, prefix, dt, device) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     p = {
-        "wi": _normal(gen, (count, d, f), dt, device),
-        "wg": _normal(gen, (count, d, f), dt, device),
-        "wo": _normal(gen, (count, f, d), dt, device),
-        "norm": torch.ones((count, d), dtype=dt, device=device),
+        "wi": _normal(gen, (*prefix, d, f), dt, device),
+        "wg": _normal(gen, (*prefix, d, f), dt, device),
+        "wo": _normal(gen, (*prefix, f, d), dt, device),
+        "norm": torch.ones((*prefix, d), dtype=dt, device=device),
     }
     if cfg.post_block_norm:
-        p["post_norm"] = torch.ones((count, d), dtype=dt, device=device)
+        p["post_norm"] = torch.ones((*prefix, d), dtype=dt, device=device)
     return p
 
 
-def _init_dense_stack(gen, cfg, count, dt, device) -> dict:
+def _init_dense_stack(gen, cfg, prefix, dt, device) -> dict:
     if cfg.num_experts:
         raise NotImplementedError("MoE layers are not ported to repro_torch yet")
-    return {"attn": _init_attn_block(gen, cfg, count, dt, device),
-            "mlp": _init_mlp(gen, cfg, count, dt, device)}
+    return {"attn": _init_attn_block(gen, cfg, prefix, dt, device),
+            "mlp": _init_mlp(gen, cfg, prefix, dt, device)}
 
 
 def init_params(gen: torch.Generator, cfg, device) -> dict:
@@ -78,10 +83,17 @@ def init_params(gen: torch.Generator, cfg, device) -> dict:
     for kind, count in cfg.layer_groups:
         _check_kind(kind)
         if kind == "local_global":
-            groups.append({"local": _init_dense_stack(gen, cfg, count, dt, device),
-                           "global": _init_dense_stack(gen, cfg, count, dt, device)})
+            groups.append({"local": _init_dense_stack(gen, cfg, (count,), dt, device),
+                           "global": _init_dense_stack(gen, cfg, (count,), dt, device)})
+        elif kind == MAMBA:
+            groups.append(M.init_mamba_block(gen, cfg, (count,), device))
+        elif kind == "hybrid_super":
+            inner = cfg.hybrid_attn_every
+            groups.append({
+                "mamba": M.init_mamba_block(gen, cfg, (count, inner), device),
+                "shared": _init_dense_stack(gen, cfg, (), dt, device)})
         else:
-            groups.append(_init_dense_stack(gen, cfg, count, dt, device))
+            groups.append(_init_dense_stack(gen, cfg, (count,), dt, device))
     params = {
         "embed": _normal(gen, (cfg.vocab_size, cfg.d_model), dt, device),
         "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=device),
@@ -139,6 +151,13 @@ def init_cache(cfg, batch: int, capacity: int, windowed: bool = False,
         if kind == "local_global":
             caches.append({"local": kv(count, wcap),
                            "global": kv(count, capacity)})
+        elif kind == MAMBA:
+            caches.append(M.init_mamba_state(cfg, batch, dt, device, (count,)))
+        elif kind == "hybrid_super":
+            inner = cfg.hybrid_attn_every
+            caches.append({"mamba": M.init_mamba_state(cfg, batch, dt, device,
+                                                       (count, inner)),
+                           **kv(count, wcap)})
         else:
             caches.append(kv(count, wcap if kind == SWA else capacity))
     return caches
@@ -154,8 +173,26 @@ def _put(buf: dict, i: int, kv: dict, cache_pos: int) -> None:
         buf[name][i, :, :, cache_pos:cache_pos + T] = kv[name].transpose(1, 2)
 
 
+def _mamba_layer(lp, x, cfg, buf: dict, idx: tuple, mode: str,
+                 fresh: bool = False):
+    """One Mamba block on the state at ``buf[...][idx]``, which it then
+    overwrites in place with the block's new state.  ``fresh``: no token
+    came before, so the block starts from ``state=None``, the zero state."""
+    st = None if fresh else {"ssm": buf["ssm"][idx], "conv": buf["conv"][idx]}
+    x, new = M.mamba_block_apply(lp, x, cfg, state=st, mode=mode)
+    buf["ssm"][idx].copy_(new["ssm"])
+    buf["conv"][idx].copy_(new["conv"])
+    return x
+
+
 def run_group_prefill(gp, x, cfg, kind, cache, *, positions, cache_pos=0):
-    """Forward with the cache written in place at [cache_pos, cache_pos+T)."""
+    """Forward with the cache written in place at [cache_pos, cache_pos+T).
+
+    At ``cache_pos == 0`` no token came before, so the Mamba blocks start
+    from ``state=None``, the zero state, which lets a kernel prefill take
+    the SSD-scan kernel (``mamba.mamba_block_apply``).  Past it they read
+    their state from the cache, as the reference's always do."""
+    fresh = cache_pos == 0
     _check_kind(kind)
     if kind == "local_global":
         for i in range(gp["local"]["attn"]["wq"].shape[0]):
@@ -167,6 +204,23 @@ def run_group_prefill(gp, x, cfg, kind, cache, *, positions, cache_pos=0):
                                         window=None, mode="prefill",
                                         positions=positions)
             _put(cache["global"], i, kv_g, cache_pos)
+        return x, cache
+    if kind == MAMBA:
+        for i in range(gp["in_proj"].shape[0]):
+            x = _mamba_layer(layer_params(gp, i), x, cfg, cache, (i,),
+                             "prefill", fresh)
+        return x, cache
+    if kind == "hybrid_super":
+        count, inner = gp["mamba"]["in_proj"].shape[:2]
+        for i in range(count):
+            stack = layer_params(gp["mamba"], i)
+            for j in range(inner):
+                x = _mamba_layer(layer_params(stack, j), x, cfg,
+                                 cache["mamba"], (i, j), "prefill", fresh)
+            x, kv = dense_layer_apply(gp["shared"], x, cfg,
+                                      window=cfg.sliding_window,
+                                      mode="prefill", positions=positions)
+            _put(cache, i, kv, cache_pos)
         return x, cache
     for i in range(gp["attn"]["wq"].shape[0]):
         x, kv = dense_layer_apply(layer_params(gp, i), x, cfg,
@@ -182,8 +236,9 @@ def _layer_cache(buf: dict, i: int) -> dict:
 
 def run_group_decode(gp, x, cfg, kind, cache, *, pos, windowed=False):
     """One-token step.  pos: 0-d int tensor — the slot the new token lands in.
-    windowed=True: sliding-window layers use ring-buffer caches.  The cache
-    is updated in place (see ``layers.attn_block_apply``)."""
+    windowed=True: sliding-window layers (and Zamba2's shared block) use
+    ring-buffer caches.  The cache is updated in place: K/V as in
+    ``layers.attn_block_apply``, the SSM and conv state by ``_mamba_layer``."""
     _check_kind(kind)
     positions = pos.reshape(1)
     if kind == "local_global":
@@ -197,6 +252,23 @@ def run_group_decode(gp, x, cfg, kind, cache, *, pos, windowed=False):
                                      window=None, mode="decode",
                                      kv=_layer_cache(cache["global"], i),
                                      cache_pos=pos, positions=positions)
+        return x, cache
+    if kind == MAMBA:
+        for i in range(gp["in_proj"].shape[0]):
+            x = _mamba_layer(layer_params(gp, i), x, cfg, cache, (i,),
+                             "decode")
+        return x, cache
+    if kind == "hybrid_super":
+        count, inner = gp["mamba"]["in_proj"].shape[:2]
+        for i in range(count):
+            stack = layer_params(gp["mamba"], i)
+            for j in range(inner):
+                x = _mamba_layer(layer_params(stack, j), x, cfg,
+                                 cache["mamba"], (i, j), "decode")
+            x, _ = dense_layer_apply(gp["shared"], x, cfg,
+                                     window=cfg.sliding_window, mode="decode",
+                                     kv=_layer_cache(cache, i), cache_pos=pos,
+                                     positions=positions, ring=windowed)
         return x, cache
     ring = windowed and kind == SWA
     for i in range(gp["attn"]["wq"].shape[0]):

@@ -1,5 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions on the GPU, over
-the reference's case lists: 2e-5 in float32, 2e-2 in bfloat16.
+the reference's case lists: attention at 2e-5 in float32 and 2e-2 in
+bfloat16; the SSD scan at the reference's 2e-3, with float32 or bfloat16
+B/C, over its case list and the Mamba2 and Zamba2 serving shapes.
 
 Marked ``cuda``: each test skips without a GPU.  This file imports no JAX,
 so it runs on a machine that has only PyTorch and the CUDA toolkit:
@@ -15,6 +17,8 @@ from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.models.mamba import ssd_chunked
 
 # copies of the reference's case lists (tests/test_kernels.py,
 # tests/test_paged_attention.py)
@@ -44,6 +48,20 @@ DECODE_CASES = [
     (1, 256, 8, 2, 64, 0, None, None),
 ]
 DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}
+SSD_CASES = [
+    # (B, T, H, P, N, chunk): the reference's, then the serving shapes of
+    # Mamba2-1.3B and Zamba2-1.2B (8 prompts of 512 tokens)
+    (2, 256, 4, 64, 32, 64),
+    (1, 128, 8, 32, 16, 128),
+    (2, 512, 2, 64, 64, 128),
+    (1, 256, 64, 64, 128, 64),
+    (8, 512, 64, 64, 128, 256),
+    (8, 512, 64, 64, 64, 256),
+    # the chunks 300- and 700-token prompts give (300, 350): not multiples
+    # of the kernel's 64-row tile
+    (2, 300, 8, 64, 128, 300),
+    (1, 700, 4, 32, 64, 350),
+]
 
 
 @pytest.fixture
@@ -102,3 +120,62 @@ def test_unsupported_cuda_input_raises(gpu):
     q = torch.zeros(1, 8, 4, 32, device=gpu, dtype=torch.float16)
     with pytest.raises(ValueError):
         flash_ops.flash_attention(q, q[:, :, :2], q[:, :, :2])
+
+
+def ssd_inputs(case, bc_dtype, device, seed=2):
+    """The reference test's distributions, drawn with numpy: x, dt
+    (softplus'd), A (negative), Bm, Cm."""
+    B, T, H, P, N, _ = case
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(device)
+
+    x = normal(B, T, H, P, scale=0.5)
+    dt = torch.nn.functional.softplus(normal(B, T, H))
+    A = -torch.exp(normal(H, scale=0.5))
+    Bm = normal(B, T, N, scale=0.5).to(bc_dtype)
+    Cm = normal(B, T, N, scale=0.5).to(bc_dtype)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES, ids=str)
+@pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_ssd_kernel_matches_plain(gpu, case, bc_dtype):
+    x, dt, A, Bm, Cm = ssd_inputs(case, bc_dtype, gpu)
+    chunk = case[-1]
+    y, state = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    y_ref, s_ref = ssd_chunked(x, dt, A, Bm, Cm, chunk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_ref, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(state, s_ref, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_takes_strided_bc(gpu):
+    """B and C as the model passes them: slices of one (B, T, C) tensor."""
+    case = (2, 256, 8, 64, 64, 128)
+    x, dt, A, Bm, Cm = ssd_inputs(case, torch.bfloat16, gpu)
+    xbc = torch.cat([torch.zeros_like(Bm), Bm, Cm], dim=-1)
+    N = Bm.shape[-1]
+    y1, s1 = ssd_ops.ssd_scan(x, dt, A, xbc[..., N:2 * N], xbc[..., 2 * N:],
+                              chunk=128)
+    y2, s2 = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=128)
+    torch.testing.assert_close(y1, y2, atol=0, rtol=0)
+    torch.testing.assert_close(s1, s2, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_ssd_unsupported_cuda_input_raises(gpu):
+    x, dt, A, Bm, Cm = ssd_inputs((1, 128, 2, 32, 16, 64), torch.float32, gpu)
+    with pytest.raises(ValueError, match="dtype"):
+        ssd_ops.ssd_scan(x, dt, A, Bm.half(), Cm.half(), chunk=64)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=48)
+    with pytest.raises(ValueError, match="devices"):
+        ssd_ops.ssd_scan(x, dt, A, Bm.cpu(), Cm, chunk=64)
+    with pytest.raises(ValueError, match="head_dim"):
+        ssd_ops.ssd_scan(x[..., :16], dt, A, Bm, Cm, chunk=64)

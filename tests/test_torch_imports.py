@@ -41,6 +41,7 @@ def test_port_imports_with_jax_and_reference_blocked():
             "repro_torch.models.api", "repro_torch.models.transformer",
             "repro_torch.kernels.flash_attention.ops",
             "repro_torch.kernels.decode_attention.ops",
+            "repro_torch.kernels.ssd_scan.ops", "repro_torch.models.mamba",
             "repro_torch.serving.executor", "repro_torch.serving.engine",
             "repro_torch.core.controller", "repro_torch.launch.serve"]
     code = ("import sys\n"

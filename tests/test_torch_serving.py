@@ -40,9 +40,9 @@ def test_real_executor_llm_serving():
     assert a.bs >= 1 and a.mtl >= 1
 
 
-def test_no_bucket_misses_after_warmup():
-    ex, _ = _tiny_executor()
-    max_bs, max_mtl = 16, 2
+def _serve_warm(ex, max_bs=16, max_mtl=2):
+    """Warm every bucket up, then serve under the hybrid controller: no
+    bucket may be missed after warm-up."""
     buckets = sorted({ex.bucket(n) for n in range(1, max_bs * max_mtl + 1)})
     for n in buckets:
         assert ex.warmup(n, 1) > 0.0            # warm-up time is reported
@@ -55,6 +55,29 @@ def test_no_bucket_misses_after_warmup():
     s = eng.run(ctrl, max_steps=40).summary()
     assert ex.cache_stats.misses == 0 and ex.cache_stats.hits > 40
     assert s["compile_stall_s"] == 0.0
+    return s
+
+
+def test_no_bucket_misses_after_warmup():
+    ex, _ = _tiny_executor()
+    _serve_warm(ex)
+
+
+def test_mamba2_serves_with_no_bucket_misses_after_warmup(monkeypatch):
+    """Mamba2 TINY through ``real_executor_for``: every served batch's
+    prefill sends each Mamba block through the SSD-scan kernel wrapper."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    ex, cfg = real_executor_for("mamba2_1p3b", tiny=True, device="cpu",
+                                prompt_len=32, new_tokens=4)
+    assert cfg.kernel_impl == "pallas" and cfg.arch_type == "ssm"
+    calls = []
+    real = ssd_ops.ssd_scan
+    monkeypatch.setattr(ssd_ops, "ssd_scan",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    s = _serve_warm(ex, max_bs=8)
+    assert s["throughput"] > 0
+    runs = ex.cache_stats.hits + ex.cache_stats.misses
+    assert len(calls) >= cfg.num_layers * runs
 
 
 def test_generate_is_prefill_then_greedy_decode():
