@@ -2,25 +2,33 @@
 
     python3 chip_smoke.py
 
-Five phases, any failure fatal:
+Seven phases, any failure fatal, all in a temporary autotune store, so a
+stale ``.profile_store/`` in the working directory changes nothing:
   1. toolchain: torch / CUDA / nvcc versions, the card, TF32 off;
-  2. build the three CUDA kernels from src/repro_torch/kernels/csrc with
+  2. build the four CUDA kernels from src/repro_torch/kernels/csrc with
      nvcc, one process per source, all started together;
   3. kernels: each kernel against its plain PyTorch version over the
-     reference case lists and the shapes of the serving paths (attention:
-     float32 at 2e-5, bfloat16 at 2e-2; SSD scan: float32 or bfloat16 B/C
-     at 2e-3), then timed beside its plain version, one PyTorch library
-     call where there is one, and its bound;
+     reference case lists and the shapes of the serving paths (attention,
+     paged attention included: float32 at 2e-5, bfloat16 at 2e-2; SSD
+     scan: float32 or bfloat16 B/C at 2e-3), then timed beside its plain
+     version, one PyTorch library call where there is one, and its bound;
   4. model: full-width SmolLM-360M, Mamba2-1.3B and Zamba2-1.2B (random
      weights from a seed), prefill 8 x 512 and decode steps through the
      kernels, held against the plain path on the card (float32 at 1e-4;
      bf16 at the JAX bounds or twice the plain path's own rounding floor,
      whichever is larger; argmax equal but at near-ties), with the
      kernels' launch counts checked;
-  5. serving: RealExecutor + DNNScalerController (hybrid) + ServingEngine
-     at full width, SmolLM-360M (flash + decode attention) and then
-     Mamba2-1.3B (SSD scan), each with zero bucket-cache misses after
-     warm-up and its kernels' launches counted over the engine's run.
+  5. serving: RealExecutor + DNNScaler (hybrid, estimator seeded as
+     ``serve`` seeds it) + ServingEngine at full width, SmolLM-360M (flash
+     + decode attention) and then Mamba2-1.3B (SSD scan), each with zero
+     bucket-cache misses after warm-up and its kernels' launches counted
+     over the engine's run;
+  6. autotune: ``serve --autotune``'s tuning of the serving shape classes
+     (SmolLM-360M prefill, decode and paged decode; Mamba2-1.3B's SSD
+     scan), every candidate timed through its kernel, the paged kernel at
+     each page size; a second tuning times nothing and the generation
+     bumps once per class; then a short SmolLM serving run on the tuned
+     cache with zero misses and zero stale hits after warm-up.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 the device JSON line.  Exits non-zero without a CUDA device.
@@ -32,6 +40,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -43,15 +52,17 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs.base import InputShape, get_config  # noqa: E402
-from repro_torch.core.controller import DNNScalerController  # noqa: E402
+from repro_torch.configs.base import (InputShape, get_config,  # noqa: E402
+                                       torch_dtype)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_attention import \
     decode_attention as k2  # noqa: E402
 from repro_torch.kernels.decode_attention import \
     ops as decode_ops  # noqa: E402
-from repro_torch.kernels.decode_attention.ref import \
-    decode_attention_ref  # noqa: E402
+from repro_torch.kernels.decode_attention import \
+    paged_decode_attention as k3  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
+    decode_attention_ref, paged_decode_attention_ref)
 from repro_torch.kernels.flash_attention import \
     flash_attention as k1  # noqa: E402
 from repro_torch.kernels.flash_attention import \
@@ -59,16 +70,17 @@ from repro_torch.kernels.flash_attention import \
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan as k4  # noqa: E402
-from repro_torch.launch.serve import real_executor_for  # noqa: E402
+from repro_torch.launch.serve import (make_controller,  # noqa: E402
+                                      real_executor_for)
 from repro_torch.models import api, layers  # noqa: E402
 from repro_torch.models.mamba import ssd_chunked  # noqa: E402
+from repro_torch.perf import autotune  # noqa: E402
+from repro_torch.perf.roofline import (BF16_FLOPS, F32_FLOPS,  # noqa: E402
+                                       HBM_BPS)
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.executor import tensor_leaves  # noqa: E402
 
 DEV = torch.device("cuda")
-HBM_BPS = 3.35e12          # H100 SXM device memory, bytes/s (data sheet)
-BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak, FLOP/s
-F32_FLOPS = 67e12          # H100 SXM float32 peak outside the tensor cores
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 # (B, Tq, Tk, H, KV, hd, causal, window, cap): the reference's FLASH_CASES,
@@ -114,6 +126,25 @@ SSD_CASES = [
     (1, 700, 4, 32, 64, 350),
 ]
 SSD_TOL = 2e-3             # the reference's bound for the chunked scan
+
+# (B, S, H, KV, hd, page_size, lens, window, cap): the reference's
+# PAGED_CASES (tests/test_paged_attention.py), then each page size the
+# autotuner offers, then the two timing shapes: SmolLM-360M's decode
+# geometry with every slot full, and the ragged shape of
+# benchmarks/token_benches.py
+PAGED_CASES = [
+    (4, 512, 8, 2, 64, 64, (512, 300, 37, 1), None, None),
+    (1, 256, 4, 1, 128, 64, (200,), None, None),
+    (3, 384, 6, 3, 64, 128, (384, 129, 64), None, None),
+    (2, 512, 8, 2, 64, 64, (500, 90), 128, None),
+    (2, 256, 4, 4, 32, 32, (250, 31), None, 50.0),
+    (3, 256, 8, 2, 64, 64, (256, 0, 10), None, None),
+]
+PAGE_SIZE_CASES = [(2, 512, 8, 2, 64, psz, (512, 301), None, None)
+                   for psz in (32, 64, 128, 256)]
+PAGED_SMOLLM = (8, 544, 15, 5, 64, 32, (544,) * 8, None, None)
+PAGED_RAGGED = (8, 1024, 8, 2, 64, 64, (1024, 700, 512, 301, 128, 37, 1, 0),
+                None, None)
 
 # the serving paths' shapes: 8 prompts of 512 tokens, 32 decode steps
 ARCH, BATCH, PROMPT, STEPS = "smollm_360m", 8, 512, 32
@@ -223,8 +254,9 @@ def phase_toolchain() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    build.build("flash_attention", "decode_attention", "ssd_scan", force=True)
-    print(f"[build] nvcc sm_90a, three sources in parallel: "
+    build.build("flash_attention", "decode_attention",
+                "paged_decode_attention", "ssd_scan", force=True)
+    print(f"[build] nvcc sm_90a, four sources in parallel: "
           f"{time.perf_counter() - t0:.1f}s")
     for name, log in build.PTXAS_REPORT.items():
         for line in log.splitlines():
@@ -444,6 +476,114 @@ def phase_ssd() -> dict:
                 bound_by=by, library_ms=None)
 
 
+def _paged_inputs(gen, case, dtype, shuffle: bool) -> tuple:
+    """q and a dense cache chopped into a (P, psz, KV, hd) pool, with the
+    block table (pages scattered through the pool when ``shuffle``) and
+    the lengths on the card."""
+    B, S, H, KV, hd, psz, lens, _, _ = case
+    q, k, v = _qkv(gen, (B, H, hd), (B, S, KV, hd), dtype)
+    ns = S // psz
+    P = B * ns
+    kp, vp = k.reshape(P, psz, KV, hd), v.reshape(P, psz, KV, hd)
+    tbl = torch.arange(P, dtype=torch.int32, device=DEV).reshape(B, ns)
+    if shuffle:
+        perm = torch.randperm(P, generator=gen, device=DEV)
+        kp, vp = kp[perm], vp[perm]
+        tbl = torch.argsort(perm).to(torch.int32).reshape(B, ns)
+    return q, kp, vp, torch.tensor(lens, dtype=torch.int32, device=DEV), tbl
+
+
+def _check_paged(gen, case, dtype, shuffle: bool = True,
+                 garbage: bool = False) -> float:
+    window, cap = case[-2:]
+    q, kp, vp, lens, tbl = _paged_inputs(gen, case, dtype, shuffle)
+    ref = paged_decode_attention_ref(q, kp, vp, lens, tbl, window=window,
+                                     logit_cap=cap)
+    if garbage:   # the reference's test: poison what lies past each length
+        psz = kp.shape[1]
+        used = (torch.arange(tbl.shape[1], device=DEV)[None, :]
+                < ((lens + psz - 1) // psz)[:, None])
+        bad = torch.ones(kp.shape[0], dtype=torch.bool, device=DEV)
+        bad[tbl[used].long()] = False
+        kp = torch.where(bad[:, None, None, None], 1e4, kp).to(dtype)
+        vp = torch.where(bad[:, None, None, None], 1e4, vp).to(dtype)
+        tbl = torch.where(used, tbl, 10_000)
+    out = decode_ops.paged_decode_attention(q, kp, vp, lens, tbl,
+                                            window=window, logit_cap=cap)
+    torch.cuda.synchronize()      # a read out of range would fault here
+    tol = TOL[dtype]
+    assert torch.isfinite(out.float()).all(), ("paged", case, dtype)
+    assert torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol), \
+        ("paged kernel disagrees", case, dtype, _maxerr(out, ref))
+    assert (out[lens == 0] == 0).all(), ("freed slot not zero", case)
+    return _maxerr(out, ref)
+
+
+def _paged_timing(gen, case, dtype) -> tuple:
+    """(kernel ms, plain ms, bound ms, bound_by, max |err|) at ``case``.
+    The bound counts the live keys' K and V, q and o, and the table
+    entries of the live pages, each moved once."""
+    B, S, H, KV, hd, psz, lens, _, _ = case
+    q, kp, vp, lens_t, tbl = _paged_inputs(gen, case, dtype, True)
+    err = _maxerr(decode_ops.paged_decode_attention(q, kp, vp, lens_t, tbl),
+                  paged_decode_attention_ref(q, kp, vp, lens_t, tbl))
+    ms = _time_ms(lambda: decode_ops.paged_decode_attention(q, kp, vp,
+                                                            lens_t, tbl))
+    plain = _time_ms(lambda: paged_decode_attention_ref(q, kp, vp, lens_t,
+                                                        tbl))
+    live = sum(lens)
+    pages = sum(math.ceil(n / psz) for n in lens)
+    size = q.element_size()
+    nbytes = size * (2 * live * KV * hd + 2 * B * H * hd) + 4 * (pages + B)
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    bound, by = _bound(nbytes, (4 * live * H * hd, peak))
+    return ms, plain, bound, by, err, live, nbytes
+
+
+def phase_paged() -> dict:
+    """K3 against its plain version: the reference's PAGED_CASES (pages
+    shuffled through the pool), each page size (pages in order), the
+    garbage-page/garbage-table case, and the two timing shapes, in both
+    dtypes; then timed at SmolLM's decode geometry (bf16) and the ragged
+    shape (float32)."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(13)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        errs = ([_check_paged(gen, c, dtype) for c in PAGED_CASES]
+                + [_check_paged(gen, c, dtype, shuffle=False)
+                   for c in PAGE_SIZE_CASES]
+                + [_check_paged(gen, (2, 256, 4, 2, 64, 64, (70, 128), None,
+                                      None), dtype, False, garbage=True)]
+                + [_check_paged(gen, c, dtype)
+                   for c in (PAGED_SMOLLM, PAGED_RAGGED)])
+        worst[dtype] = (max(errs), len(errs))
+    (f_abs, n), (b_abs, _) = worst[torch.float32], worst[torch.bfloat16]
+    print(f"[kernels] paged_decode_attention: max |kernel - plain| over {n} "
+          f"cases (garbage pages and a 10,000-entry table included, no "
+          f"fault at the synchronise): float32 {f_abs:.3e} (tol 2e-5), "
+          f"bfloat16 {b_abs:.3e} (tol 2e-2); freed slots exactly 0")
+    rows = {}
+    for name, case, dtype in (("smollm", PAGED_SMOLLM, torch.bfloat16),
+                              ("ragged", PAGED_RAGGED, torch.float32)):
+        ms, plain, bound, by, err, live, nbytes = _paged_timing(gen, case,
+                                                                dtype)
+        rows[name] = (ms, plain, bound, by, err)
+        print(f"[kernels] paged_decode_attention at (B, S, H, KV, hd, psz) "
+              f"{case[:6]} lens {case[6]} {str(dtype)[6:]}: kernel {ms:.4f} "
+              f"ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({by}: "
+              f"{live} live keys, {nbytes / 1e6:.3f} MB); no single "
+              f"PyTorch call reads a block table")
+    ms, plain, bound, by, err = rows["smollm"]
+    return dict(name="paged_decode_attention_fwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/"
+                       "paged_decode_attention.cu",
+                replaces="src/repro/kernels/decode_attention/"
+                         "paged_decode_attention.py:103",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                bound_by=by, library_ms=None)
+
+
 def _bound_used(got, want, atol, rtol) -> float:
     """Share of the bound |got - want| <= atol + rtol |want| used (<= 1
     passes)."""
@@ -493,6 +633,33 @@ def _path_counts(cfg) -> tuple:
         else:
             attn += count
     return attn, mamba
+
+
+def _lookup_cost(cfg, n_attn: int, step) -> None:
+    """What the wrappers' autotune lookups (one per attention layer and
+    decode step, memoised) cost: one lookup on the host clock, and the
+    decode step with lookups on and off, in turns (on, off, off, on, ...),
+    each the median of its runs."""
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    q = torch.zeros((BATCH, H, cfg.head_dim), dtype=torch.bfloat16,
+                    device=DEV)
+    n = 20000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        decode_ops._resolve_split_len(None, q, BATCH * KV, H // KV,
+                                      PROMPT + STEPS)
+    per_us = (time.perf_counter() - t0) / n * 1e6
+    times = {True: [], False: []}
+    for on in (True, False, False, True, True, False, False, True):
+        autotune.configure(enabled=on)
+        times[on].append(_wall_ms(step))
+    autotune.configure(enabled=True)
+    on_ms, off_ms = (sorted(times[k])[len(times[k]) // 2]
+                     for k in (True, False))
+    print(f"[model] {cfg.name} bf16 decode step, median of 4 runs each in "
+          f"turns: with the memoised autotune lookups {on_ms:.2f} ms, "
+          f"without {off_ms:.2f} ms; one lookup {per_us:.2f} us on the "
+          f"host, {n_attn} per step = {n_attn * per_us / 1e3:.3f} ms")
 
 
 def _model_run(arch: str, dtype: str, steps: int) -> None:
@@ -564,6 +731,9 @@ def _model_run(arch: str, dtype: str, steps: int) -> None:
         pre_ms = _wall_ms(run_prefill)
         step_ms = _wall_ms(lambda: api.decode_step(params, ck, tok, pos - 1,
                                                    cfg_k))
+        if n_attn:
+            _lookup_cost(cfg, n_attn, lambda: api.decode_step(
+                params, ck, tok, pos - 1, cfg_k))
         share = ""
         if n_mamba:
             k4_ms = _k4_ms_in(run_prefill)
@@ -609,8 +779,8 @@ def _serve(arch: str, max_bs: int, max_mtl: int, steps: int) -> dict:
     ex.cache_stats.reset_counters()
     base = ex.mean_latency(1, 1)
     slo = 4 * base
-    ctrl = DNNScalerController(ex, slo, mode="hybrid", m=8, n=4,
-                               max_bs=max_bs, max_mtl=max_mtl)
+    ctrl = make_controller("hybrid", ex, slo, m=8, n=4, max_bs=max_bs,
+                           max_mtl=max_mtl)
     eng = ServingEngine(ex, slo, instance_launch_s=0.2)
     torch.cuda.synchronize()
     k1.LAUNCHES = k2.LAUNCHES = k4.LAUNCHES = 0
@@ -629,9 +799,11 @@ def _serve(arch: str, max_bs: int, max_mtl: int, steps: int) -> dict:
           f"{ctrl.profile.approach}; steady(bs={act.bs}, mtl={act.mtl}); "
           f"throughput {s['throughput']:.2f} req/s; p95 "
           f"{s['p95_s'] * 1e3:.1f} ms; attainment {s['slo_attainment']:.3f}; "
-          f"exec-cache hits {cs.hits} misses {cs.misses} after warm-up")
+          f"exec-cache hits {cs.hits} misses {cs.misses} stale hits "
+          f"{cs.stale_hits} after warm-up")
     assert s["throughput"] > 0 and math.isfinite(s["p95_s"]), s
     assert cs.misses == 0, ("bucket-cache misses after warm-up", cs.misses)
+    assert cs.stale_hits == 0, ("stale buckets served", cs.stale_hits)
     want = {"flash": n_attn * batches, "decode": n_attn * STEPS * batches,
             "ssd_scan": n_mamba * batches}
     assert launches == want and any(launches.values()), (launches, want)
@@ -656,16 +828,123 @@ def phase_serving() -> dict:
             "ssd_scan": mamba["ssd_scan"]}
 
 
+def _tune_classes() -> list:
+    """(kernel, dtype, dims) of the serving shape classes at batch 8:
+    SmolLM-360M's flash prefill and split-K decode, the paged decode
+    kernel at SmolLM's decode geometry (the page size a paged KV cache of
+    it would take), and Mamba2-1.3B's SSD scan."""
+    smollm, mamba = get_config(ARCH), get_config(SSM_ARCH)
+    KV = smollm.num_kv_heads
+    geo = dict(BKV=BATCH * KV, G=smollm.num_heads // KV, hd=smollm.head_dim)
+    dt = torch_dtype(smollm)
+    return [
+        ("flash_attention", dt, dict(geo, Tq=PROMPT, Tk=PROMPT, causal=True)),
+        ("decode_attention", dt, dict(geo, S=PROMPT + STEPS)),
+        ("paged_decode_attention", dt, dict(geo, S=PROMPT + STEPS)),
+        ("ssd_scan", torch_dtype(mamba), dict(
+            H=mamba.ssm_expand * mamba.d_model // mamba.ssm_head_dim,
+            P=mamba.ssm_head_dim, N=mamba.ssm_state_size, T=PROMPT)),
+    ]
+
+
+def _tune_all(classes) -> list:
+    return [autotune.tune(kernel, dtype, device=DEV, **dims)
+            for kernel, dtype, dims in classes]
+
+
+def _check_paged_class(dtype, dims) -> float:
+    """K3 against its plain version on the inputs the tuning times it on
+    (``autotune.paged_inputs``), at every page size it may time."""
+    cls = autotune.shape_class("paged_decode_attention", **dims)
+    errs = []
+    for psz in (32, 64, 128, 256):
+        q, kp, vp, lens, tbl = autotune.paged_inputs(cls, dtype, psz, DEV)
+        out = decode_ops.paged_decode_attention(q, kp, vp, lens, tbl)
+        ref = paged_decode_attention_ref(q, kp, vp, lens, tbl)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out.float()).all(), ("paged", cls, psz)
+        assert torch.allclose(out.float(), ref.float(), atol=TOL[dtype],
+                              rtol=TOL[dtype]), \
+            ("paged kernel disagrees", cls, psz, _maxerr(out, ref))
+        errs.append(_maxerr(out, ref))
+    print(f"[autotune] paged_decode_attention at the tuned class {cls} "
+          f"{str(dtype)[6:]}, page sizes 32, 64, 128, 256: max |kernel - "
+          f"plain| {max(errs):.3e} (tol {TOL[dtype]:g})")
+    return max(errs)
+
+
+def phase_autotune() -> int:
+    """``autotune.tune`` of the serving shape classes (``_tune_classes``),
+    after K3 is held against its plain version on the paged class's own
+    inputs.  Every candidate runs its kernel.  A second tuning times
+    nothing, the generation bumps once per new class, and
+    ``resolve_page_size`` returns the tuned page size.  Returns the paged
+    kernel's launches over the tuning; then serves SmolLM briefly on the
+    tuned cache."""
+    classes = _tune_classes()
+    _check_paged_class(*classes[2][1:])
+    gen0 = autotune.generation()
+    torch.cuda.synchronize()
+    k1.LAUNCHES = k2.LAUNCHES = k3.LAUNCHES = k4.LAUNCHES = 0
+    t0 = time.perf_counter()
+    entries = _tune_all(classes)
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    launches = {"flash": k1.LAUNCHES, "decode": k2.LAUNCHES,
+                "paged": k3.LAUNCHES, "ssd_scan": k4.LAUNCHES}
+    stats = autotune.cache_stats()
+    assert all(launches.values()), ("a kernel was not timed", launches)
+    assert stats["generation"] == gen0 + len(classes), stats
+    for (kernel, _, _), e in zip(classes, entries):
+        timed = ", ".join(f"{json.loads(c)} {us:.2f}"
+                          for c, us in e["candidates_timed"].items())
+        print(f"[autotune] {kernel} {str(e['shape_class'])} "
+              f"{e['backend']}: chose {e['config']} at "
+              f"{e['us_per_call']:.2f} us (default {e['default_us']} us); "
+              f"candidates (us, median of 3 after a warm-up): {timed}")
+    paged = entries[2]
+    sizes = [json.loads(c)["page_size"] for c in paged["candidates_timed"]]
+    runs = len(sizes) * 4                       # a warm-up and 3 timed runs
+    assert launches["paged"] == runs, (launches, sizes)
+    print(f"[autotune] {len(classes)} classes in {tune_s * 1e3:.1f} ms, "
+          f"{stats['timings']} candidates timed; generation {gen0} -> "
+          f"{stats['generation']}; launches over the tuning: {launches} "
+          f"(paged: {len(sizes)} page sizes x {runs // len(sizes)} runs)")
+
+    assert _tune_all(classes) == entries
+    assert autotune.cache_stats()["timings"] == stats["timings"]
+    assert autotune.generation() == stats["generation"]
+    smollm = get_config(ARCH)
+    psz = decode_ops.resolve_page_size(
+        classes[2][1], B=BATCH, H=smollm.num_heads, KV=smollm.num_kv_heads,
+        hd=smollm.head_dim, seq_budget=PROMPT + STEPS, device=DEV)
+    assert psz == paged["config"]["page_size"], (psz, paged["config"])
+    print(f"[autotune] a second tuning timed nothing and kept generation "
+          f"{autotune.generation()}; resolve_page_size -> {psz}")
+
+    hits = autotune.cache_stats()["hits"]
+    _serve(ARCH, 8, 1, 10)
+    print(f"[autotune] served SmolLM on the tuned cache: "
+          f"{autotune.cache_stats()['hits'] - hits} lookups answered by it")
+    return launches["paged"]
+
+
 def main() -> None:
     t0 = time.perf_counter()
+    store = tempfile.TemporaryDirectory(prefix="chip_smoke_autotune_")
+    autotune.configure(cache_dir=store.name, tune_on_miss=False,
+                       enabled=True)
     smi = phase_toolchain()
     phase_build()
     rows = phase_kernels()
     rows["ssd_scan"] = phase_ssd()
+    rows["paged"] = phase_paged()
     phase_model()
     launches = phase_serving()
+    launches["paged"] = phase_autotune()
     kernels = [dict(rows[n], launches=launches[n])
-               for n in ("flash", "decode", "ssd_scan")]
+               for n in ("flash", "decode", "paged", "ssd_scan")]
+    store.cleanup()
     print(f"[done] {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

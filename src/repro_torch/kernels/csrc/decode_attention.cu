@@ -115,32 +115,6 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     part_acc[part * G * hd + idx] = As[idx];
 }
 
-// Merge the splits of one (batch x kv-head) row: out = sum_s acc_s e^(m_s - M)
-// / max(sum_s l_s e^(m_s - M), 1e-30).  A split that lay wholly past pos
-// carries m = NEG_INF and l = 0 and adds nothing.
-template <typename T>
-__global__ void decode_combine_kernel(const float* __restrict__ part_m,
-                                      const float* __restrict__ part_l,
-                                      const float* __restrict__ part_acc, T* __restrict__ o,
-                                      int G, int hd, int n_split) {
-  const int bkv = blockIdx.x;
-  const float* pm = part_m + (long long)bkv * n_split * G;
-  const float* pl = part_l + (long long)bkv * n_split * G;
-  const float* pa = part_acc + (long long)bkv * n_split * G * hd;
-  for (int idx = threadIdx.x; idx < G * hd; idx += blockDim.x) {
-    const int g = idx / hd;
-    float M = attn::NEG_INF;
-    for (int s = 0; s < n_split; ++s) M = fmaxf(M, pm[s * G + g]);
-    float L = 0.f, A = 0.f;
-    for (int s = 0; s < n_split; ++s) {
-      const float w = expf(pm[s * G + g] - M);
-      L = fmaf(pl[s * G + g], w, L);
-      A = fmaf(pa[(long long)s * G * hd + idx], w, A);
-    }
-    o[(long long)bkv * G * hd + idx] = attn::from_f<T>(A / fmaxf(L, 1e-30f));
-  }
-}
-
 template <typename T, int DPL>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* pos, float* pm,
                    float* pl, float* pa, void* o, int BKV, int KV, int G, int S, int hd,
@@ -157,7 +131,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* pos, 
       st[2], st[3], st[4], st[5], split_len, window, logit_cap, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<T><<<BKV, 128, 0, stream>>>(pm, pl, pa, (T*)o, G, hd, n_split);
+  attn::merge_splits_kernel<T><<<BKV, 128, 0, stream>>>(pm, pl, pa, (T*)o, G, hd, n_split);
   return cudaGetLastError();
 }
 

@@ -58,14 +58,19 @@ def decode_attention_fwd(
     *,
     window: Optional[int],
     logit_cap: Optional[float],
+    split_len: Optional[int] = None,
 ) -> torch.Tensor:
     """k/v are indexed [b, kv_head, slot, :]; pass a permuted view for the
-    (B, S, KV, hd) layout."""
+    (B, S, KV, hd) layout.  ``split_len`` (keys per split, a multiple of
+    64) defaults to ``split_plan``'s."""
     global LAUNCHES
     B, H, hd = q.shape
     KV, S = k.shape[1], k.shape[2]
     G = H // KV
-    split_len, n_split = split_plan(B * KV, S)
+    if split_len is None:
+        split_len, n_split = split_plan(B * KV, S)
+    else:
+        n_split = math.ceil(S / split_len)
     f32 = dict(dtype=torch.float32, device=q.device)
     part_m = torch.empty((B * KV, n_split, G), **f32)
     part_l = torch.empty((B * KV, n_split, G), **f32)

@@ -7,9 +7,10 @@ tensor goes to the plain chunked version (``models.mamba.ssd_chunked``, in
 float32); a CUDA tensor launches the Hopper kernel.  Anything the kernel does not take (dtype,
 head or state size, chunk, layout, device) raises; nothing falls back.
 
-``chunk=None`` takes ``DEFAULT_CHUNK``, cut to the largest divisor of T.
-The reference consults its autotune cache first; that is not ported, so
-this is the reference's choice on an empty cache.
+``chunk=None`` consults the autotune cache (``repro_torch.perf.autotune``)
+for the best-known chunk of this shape class, dtype and device, else takes
+``DEFAULT_CHUNK``, and cuts it to the largest divisor of T, as the
+reference does.  An explicit chunk wins.
 """
 
 from __future__ import annotations
@@ -20,8 +21,9 @@ import torch
 
 from repro_torch.kernels.ssd_scan import ssd_scan as _kernel
 from repro_torch.models.mamba import ssd_chunked
+from repro_torch.perf import autotune
 
-DEFAULT_CHUNK = 128
+DEFAULT_CHUNK = autotune.DEFAULTS["ssd_scan"]["chunk"]
 
 
 def _largest_dividing_chunk(T: int, chunk: int) -> int:
@@ -68,9 +70,13 @@ def ssd_scan(
 ) -> tuple:
     """Returns (y (B,T,H,P) f32, final_state (B,H,P,N) f32), from a zero
     initial state."""
-    T = x.shape[1]
-    chunk = (_largest_dividing_chunk(T, DEFAULT_CHUNK) if chunk is None
-             else min(chunk, T))
+    _, T, H, P = x.shape
+    if chunk is None:
+        cfg = autotune.lookup("ssd_scan", x.dtype, device=x.device, H=H, P=P,
+                              N=Bm.shape[-1], T=T)
+        chunk = _largest_dividing_chunk(
+            T, cfg["chunk"] if cfg else DEFAULT_CHUNK)
+    chunk = min(chunk, T)
     _check(x, dt, A, Bm, Cm, chunk)
     if x.device.type == "cpu":
         return ssd_chunked(x.float(), dt.float(), A.float(), Bm, Cm, chunk)

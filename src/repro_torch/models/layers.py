@@ -14,10 +14,13 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.perf import autotune
+
 NEG_INF = -2.0 ** 30  # large-negative that survives bf16 softmax math in f32
 
 # Block sizes of the plain blockwise attention when the caller gives none
-# (the reference's defaults on an empty autotune cache); read at call time.
+# and the autotune cache has none (the reference's defaults); read at call
+# time.
 DEFAULT_BLOCK_Q = 256
 DEFAULT_BLOCK_K = 512
 
@@ -92,13 +95,27 @@ def flash_attention(
 
     Numerics follow the reference: q is scaled in its own dtype, scores and
     the softmax state are float32, and P is cast to v's dtype before the
-    PV product."""
+    PV product.  On the CPU, block sizes left None defer to the autotune
+    cache for this shape class and dtype; explicit ones win, and an empty
+    cache gives ``DEFAULT_BLOCK_Q`` / ``DEFAULT_BLOCK_K``.  On a card the
+    cache's flash entry is the flash kernel's fixed tile, never timed for
+    this function, so there the defaults always apply: the plain version
+    the kernels are held against does not move with the cache."""
     B, Tq, H, hd = q.shape
     _, Tk, KV, _ = k.shape
     assert H % KV == 0, (H, KV)
     G = H // KV
-    block_q = min(block_q or DEFAULT_BLOCK_Q, max(Tq, 1))
-    block_k = min(block_k or DEFAULT_BLOCK_K, max(Tk, 1))
+    cfg = None
+    if (block_q is None or block_k is None) and q.device.type == "cpu":
+        cfg = autotune.lookup("flash_attention", q.dtype, device=q.device,
+                              BKV=B * KV, G=G, hd=hd, Tq=max(Tq, 1),
+                              Tk=max(Tk, 1), causal=causal)
+    if block_q is None:
+        block_q = cfg["block_q"] if cfg else DEFAULT_BLOCK_Q
+    if block_k is None:
+        block_k = cfg["block_k"] if cfg else DEFAULT_BLOCK_K
+    block_q = min(block_q, max(Tq, 1))
+    block_k = min(block_k, max(Tk, 1))
     qp = _pad_axis(q, 1, block_q)
     kp = _pad_axis(k, 1, block_k)
     vp = _pad_axis(v, 1, block_k)

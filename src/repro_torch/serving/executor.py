@@ -15,7 +15,10 @@ RealExecutor — actually runs a model callable on the device and measures
   it to the service clock like an instance-launch stall.  PyTorch runs
   eagerly: a bucket's warm-up is one full run, ended by a device
   synchronise.  Cache hit/miss counters live in ``metrics.ExecCacheStats``;
-  steady-state probing must show zero misses after warm-up.
+  steady-state probing must show zero misses after warm-up.  A warmed
+  bucket carries the autotune generation (``perf.autotune.generation``)
+  it ran under: a new tuning evicts it and warms it again, and serving a
+  stale bucket counts as a ``stale_hit``.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.perf import autotune
 from repro_torch.serving import device_model as dm
 from repro_torch.serving import tenancy
 from repro_torch.serving.metrics import ExecCacheStats
@@ -241,11 +245,6 @@ def _tree_bytes(tree) -> float:
     return float(sum(x.numel() * x.element_size() for x in tensor_leaves(tree)))
 
 
-def _constant_generation() -> int:
-    # tile autotuning is not ported yet: the tiles never change
-    return 0
-
-
 class RealExecutor:
     """Wall-clock executor over a model callable.
 
@@ -278,7 +277,7 @@ class RealExecutor:
         # makes resident entries stale — evicted and re-warmed, never
         # served
         self._exec: dict = {}
-        self._tile_generation = tile_generation or _constant_generation
+        self._tile_generation = tile_generation or autotune.generation
         self._param_bytes: Optional[float] = None
         leaves = tensor_leaves(params)
         self.device = leaves[0].device if leaves else torch.device("cpu")

@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions on the GPU, over
-the reference's case lists: attention at 2e-5 in float32 and 2e-2 in
-bfloat16; the SSD scan at the reference's 2e-3, with float32 or bfloat16
-B/C, over its case list and the Mamba2 and Zamba2 serving shapes.
+the reference's case lists: attention (flash, split-K decode, paged
+decode) at 2e-5 in float32 and 2e-2 in bfloat16; the SSD scan at the
+reference's 2e-3, with float32 or bfloat16 B/C, over its case list and the
+Mamba2 and Zamba2 serving shapes.  The autotuner on the card times the
+paged kernel at every page size.
 
 Marked ``cuda``: each test skips without a GPU.  This file imports no JAX,
 so it runs on a machine that has only PyTorch and the CUDA toolkit:
@@ -9,16 +11,23 @@ so it runs on a machine that has only PyTorch and the CUDA toolkit:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.decode_attention import ops as dec_ops
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention import \
+    paged_decode_attention as paged_kernel
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_ref, paged_decode_attention_ref)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.models import layers
 from repro_torch.models.mamba import ssd_chunked
+from repro_torch.perf import autotune
 
 # copies of the reference's case lists (tests/test_kernels.py,
 # tests/test_paged_attention.py)
@@ -179,3 +188,196 @@ def test_ssd_unsupported_cuda_input_raises(gpu):
         ssd_ops.ssd_scan(x, dt, A, Bm.cpu(), Cm, chunk=64)
     with pytest.raises(ValueError, match="head_dim"):
         ssd_ops.ssd_scan(x[..., :16], dt, A, Bm, Cm, chunk=64)
+
+
+# (B, S, H, KV, hd, page_size, lens, window, cap): the reference's
+# PAGED_CASES (tests/test_paged_attention.py), each page size the autotuner
+# offers, and the two timing shapes of chip_smoke.py: SmolLM-360M's decode
+# geometry with every slot full, and the ragged shape of
+# benchmarks/token_benches.py
+PAGED_CASES = [
+    (4, 512, 8, 2, 64, 64, (512, 300, 37, 1), None, None),
+    (1, 256, 4, 1, 128, 64, (200,), None, None),
+    (3, 384, 6, 3, 64, 128, (384, 129, 64), None, None),
+    (2, 512, 8, 2, 64, 64, (500, 90), 128, None),
+    (2, 256, 4, 4, 32, 32, (250, 31), None, 50.0),
+    (3, 256, 8, 2, 64, 64, (256, 0, 10), None, None),
+]
+PAGE_SIZE_CASES = [(2, 512, 8, 2, 64, psz, (512, 301), None, None)
+                   for psz in (32, 64, 128, 256)]
+PAGED_TIMING_CASES = [
+    (8, 544, 15, 5, 64, 32, (544,) * 8, None, None),
+    (8, 1024, 8, 2, 64, 64, (1024, 700, 512, 301, 128, 37, 1, 0), None, None),
+]
+
+
+def paged_inputs(case, dtype, device, *, shuffle=True, seed=5):
+    """q, the dense cache chopped into a (P, psz, KV, hd) pool, the block
+    table (pages scattered through the pool when ``shuffle``) and the
+    lengths, all on ``device``."""
+    B, S, H, KV, hd, psz, lens, _, _ = case
+    q, k, v = _inputs(seed, [(B, H, hd), (B, S, KV, hd), (B, S, KV, hd)],
+                      dtype, device)
+    ns = S // psz
+    P = B * ns
+    kp = k.reshape(P, psz, KV, hd)
+    vp = v.reshape(P, psz, KV, hd)
+    tbl = torch.arange(P, dtype=torch.int32).reshape(B, ns)
+    if shuffle:
+        perm = torch.from_numpy(np.random.default_rng(seed).permutation(P))
+        kp, vp = kp[perm.to(device)], vp[perm.to(device)]
+        tbl = torch.argsort(perm).to(torch.int32).reshape(B, ns)
+    lens = torch.tensor(lens, dtype=torch.int32)
+    return q, kp, vp, lens.to(device), tbl.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PAGED_CASES + PAGE_SIZE_CASES
+                         + PAGED_TIMING_CASES, ids=str)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shuffle", [True, False], ids=["shuffled", "in-order"])
+def test_paged_kernel_matches_plain(gpu, case, dtype, shuffle):
+    window, cap = case[-2:]
+    q, kp, vp, lens, tbl = paged_inputs(case, dtype, gpu, shuffle=shuffle)
+    before = paged_kernel.LAUNCHES
+    out = dec_ops.paged_decode_attention(q, kp, vp, lens, tbl, window=window,
+                                         logit_cap=cap)
+    ref = paged_decode_attention_ref(q, kp, vp, lens, tbl, window=window,
+                                     logit_cap=cap)
+    torch.cuda.synchronize()
+    assert paged_kernel.LAUNCHES == before + 1
+    tol = DTYPES[dtype][1]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    empty = lens == 0
+    assert (out[empty] == 0).all()                 # freed slots: exact zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_size", [32, 64, 128, 256])
+def test_paged_kernel_matches_plain_at_the_tuned_class(gpu, page_size):
+    """The inputs the autotuner times K3 on for SmolLM-360M's batch-8
+    decode class (BKV 64, G 3, hd 64, S 1024), in bfloat16."""
+    cls = autotune.shape_class("paged_decode_attention", BKV=40, G=3, hd=64,
+                               S=544)
+    q, kp, vp, lens, tbl = autotune.paged_inputs(cls, torch.bfloat16,
+                                                 page_size, gpu)
+    out = dec_ops.paged_decode_attention(q, kp, vp, lens, tbl)
+    ref = paged_decode_attention_ref(q, kp, vp, lens, tbl)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_paged_kernel_never_reads_past_a_slot(gpu):
+    """The reference's garbage test: pages past each slot's length hold
+    1e4 and their table entries point far outside the pool.  The kernel
+    must neither read them (an illegal address would fault at the
+    synchronise) nor let them into the output."""
+    case = (2, 256, 4, 2, 64, 64, (70, 128), None, None)
+    q, kp, vp, lens, tbl = paged_inputs(case, "float32", gpu, shuffle=False)
+    ref = paged_decode_attention_ref(q, kp, vp, lens, tbl)
+    used = (torch.arange(tbl.shape[1], device=gpu)[None, :]
+            < ((lens + 63) // 64)[:, None])
+    page_used = used.reshape(-1)
+    kp = torch.where(page_used[:, None, None, None], kp, torch.full_like(kp, 1e4))
+    vp = torch.where(page_used[:, None, None, None], vp, torch.full_like(vp, 1e4))
+    tbl = torch.where(used, tbl, torch.full_like(tbl, 10_000))
+    out = dec_ops.paged_decode_attention(q, kp, vp, lens, tbl)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_paged_kernel_attends_no_key_past_the_table(gpu):
+    """A length beyond the table's ns pages attends the ns pages, as the
+    plain version does, and reads no table entry past the row."""
+    case = (2, 256, 4, 2, 64, 64, (256, 100), None, None)
+    q, kp, vp, lens, tbl = paged_inputs(case, "float32", gpu)
+    long = torch.tensor([300, 100], dtype=torch.int32, device=gpu)
+    out = dec_ops.paged_decode_attention(q, kp, vp, long, tbl[:, :3])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out, paged_decode_attention_ref(q, kp, vp, long, tbl[:, :3]),
+        atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_paged_unsupported_cuda_input_raises(gpu):
+    case = (2, 256, 4, 2, 64, 64, (70, 128), None, None)
+    q, kp, vp, lens, tbl = paged_inputs(case, "float32", gpu)
+    with pytest.raises(ValueError, match="dtype"):
+        dec_ops.paged_decode_attention(q.half(), kp.half(), vp.half(), lens,
+                                       tbl)
+    with pytest.raises(ValueError, match="head_dim"):
+        dec_ops.paged_decode_attention(q[..., :20].contiguous(),
+                                       kp[..., :20].contiguous(),
+                                       vp[..., :20].contiguous(), lens, tbl)
+    with pytest.raises(ValueError, match="devices"):
+        dec_ops.paged_decode_attention(q, kp.cpu(), vp.cpu(), lens, tbl)
+    with pytest.raises(ValueError, match="device"):
+        dec_ops.paged_decode_attention(q.to("meta"), kp.to("meta"),
+                                       vp.to("meta"), lens, tbl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split_len", [64, 128, 320, 1024])
+def test_decode_kernel_takes_any_split_len(gpu, split_len):
+    """K2's split_len knob, as the autotuner sets it: every split gives the
+    plain version's output."""
+    B, S, H, KV, hd, pos = 2, 1024, 8, 2, 64, 700
+    q, k, v = _inputs(1, [(B, H, hd), (B, S, KV, hd), (B, S, KV, hd)],
+                      "float32", gpu)
+    out = dec_ops.decode_attention(q, k, v, pos, split_len=split_len)
+    torch.testing.assert_close(out, decode_attention_ref(q, k, v, pos),
+                               atol=2e-5, rtol=2e-5)
+    with pytest.raises(ValueError, match="split_len"):
+        dec_ops.decode_attention(q, k, v, pos, split_len=100)
+
+
+@pytest.mark.cuda
+def test_tune_paged_times_every_page_size_through_the_kernel(gpu, tmp_path):
+    prev = autotune._state["cache_dir"]     # restore, not pin, the location
+    autotune.configure(cache_dir=str(tmp_path))
+    try:
+        before = paged_kernel.LAUNCHES
+        dims = dict(BKV=8, G=3, hd=64, S=1024)
+        e = autotune.tune("paged_decode_attention", "bfloat16", prune=False,
+                          iters=3, **dims)
+        torch.cuda.synchronize()
+        sizes = sorted(json.loads(c)["page_size"] for c in e["candidates_timed"])
+        assert sizes == [32, 64, 128, 256]
+        assert paged_kernel.LAUNCHES - before == 4 * (1 + 3)
+        assert e["backend"].startswith("torch-cuda:")
+        gen = autotune.generation()
+        again = autotune.tune("paged_decode_attention", "bfloat16", **dims)
+        assert again["config"] == e["config"] and autotune.generation() == gen
+        assert dec_ops.resolve_page_size(
+            torch.bfloat16, B=8, H=3, KV=1, hd=64,
+            seq_budget=1024) == e["config"]["page_size"]
+    finally:
+        autotune._state["cache_dir"] = prev
+        autotune.configure(tune_on_miss=False)
+
+
+@pytest.mark.cuda
+def test_plain_flash_on_the_card_ignores_the_tuned_tile(gpu, tmp_path):
+    """On the card the flash class's entry is the kernel's fixed tile; the
+    plain blockwise flash, which the kernel is held against, keeps its
+    default blocks whatever the cache holds."""
+    prev = autotune._state["cache_dir"]
+    autotune.configure(cache_dir=str(tmp_path))
+    try:
+        q, k, v = _inputs(2, [(2, 256, 6, 64), (2, 256, 2, 64),
+                              (2, 256, 2, 64)], "float32", gpu)
+        want = layers.flash_attention(q, k, v, causal=True,
+                                      block_q=layers.DEFAULT_BLOCK_Q,
+                                      block_k=layers.DEFAULT_BLOCK_K)
+        autotune.tune("flash_attention", "float32", BKV=4, G=3, hd=64,
+                      Tq=256, Tk=256, causal=True)
+        assert autotune.lookup("flash_attention", torch.float32, device=gpu,
+                               BKV=4, G=3, hd=64, Tq=256, Tk=256,
+                               causal=True) is not None
+        got = layers.flash_attention(q, k, v, causal=True)
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    finally:
+        autotune._state["cache_dir"] = prev
+        autotune.configure(tune_on_miss=False)

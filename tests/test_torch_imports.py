@@ -43,7 +43,9 @@ def test_port_imports_with_jax_and_reference_blocked():
             "repro_torch.kernels.decode_attention.ops",
             "repro_torch.kernels.ssd_scan.ops", "repro_torch.models.mamba",
             "repro_torch.serving.executor", "repro_torch.serving.engine",
-            "repro_torch.core.controller", "repro_torch.launch.serve"]
+            "repro_torch.core.controller", "repro_torch.launch.serve",
+            "repro_torch.perf.autotune", "repro_torch.perf.profile_store",
+            "repro_torch.perf.roofline", "repro_torch.serving.workload"]
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[m] = None\n"
