@@ -10,25 +10,38 @@ stale ``.profile_store/`` in the working directory changes nothing:
   3. kernels: each kernel against its plain PyTorch version over the
      reference case lists and the shapes of the serving paths (attention,
      paged attention included: float32 at 2e-5, bfloat16 at 2e-2; SSD
-     scan: float32 or bfloat16 B/C at 2e-3), then timed beside its plain
-     version, one PyTorch library call where there is one, and its bound;
+     scan: float32 or bfloat16 B/C at 2e-3), the flash kernel also over
+     cases of its wgmma body (each tile, ragged edges, q_offset, window,
+     cap, GQA groups 1-8) and a view that must take its CUDA-core body,
+     each asserting which body ran; then timed beside its plain version,
+     one PyTorch library call where there is one, and its bound.  Each
+     time is taken twice: eager (20 calls between two CUDA events, the
+     wrapper's host work included) and on the device alone (the same 20
+     calls captured once in a CUDA graph and replayed between two events);
   4. model: full-width SmolLM-360M, Mamba2-1.3B and Zamba2-1.2B (random
      weights from a seed), prefill 8 x 512 and decode steps through the
      kernels, held against the plain path on the card (float32 at 1e-4;
      bf16 at the JAX bounds or twice the plain path's own rounding floor,
      whichever is larger; argmax equal but at near-ties), with the
-     kernels' launch counts checked;
+     kernels' launch counts checked, every bf16 flash launch through the
+     wgmma body, and the time of the flash and SSD-scan kernels inside
+     one bf16 prefill from torch.profiler's trace of the card (kernel time
+     alone, and the device's idle share of the prefill);
   5. serving: RealExecutor + DNNScaler (hybrid, estimator seeded as
      ``serve`` seeds it) + ServingEngine at full width, SmolLM-360M (flash
      + decode attention) and then Mamba2-1.3B (SSD scan), each with zero
      bucket-cache misses after warm-up and its kernels' launches counted
-     over the engine's run;
+     over the engine's run, every flash launch through the wgmma body;
   6. autotune: ``serve --autotune``'s tuning of the serving shape classes
      (SmolLM-360M prefill, decode and paged decode; Mamba2-1.3B's SSD
-     scan), every candidate timed through its kernel, the paged kernel at
-     each page size; a second tuning times nothing and the generation
-     bumps once per class; then a short SmolLM serving run on the tuned
-     cache with zero misses and zero stale hits after warm-up.
+     scan), every candidate timed through its kernel on the device alone
+     (calls captured in a CUDA graph): the flash kernel at its four wgmma
+     tiles, the paged kernel at each page size, each first held against
+     its plain version on the tuning's own inputs; a second tuning times
+     nothing and the generation bumps once per class; a view off the
+     16-byte rule of the tuned flash class takes the CUDA-core body at its
+     own tile; then a short SmolLM serving run on the tuned cache with
+     zero misses and zero stale hits after warm-up.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 the device JSON line.  Exits non-zero without a CUDA device.
@@ -43,9 +56,10 @@ import sys
 import tempfile
 import time
 from pathlib import Path
-
 import torch
 import torch.nn.functional as F
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device available")
@@ -95,6 +109,23 @@ FLASH_CASES = [
     (2, 200, 200, 6, 2, 64, False, None, None),
     (1, 64, 64, 8, 4, 256, True, 32, 50.0),     # gemma2's head_dim: CUDA-core body
 ]
+# cases of the flash kernel's wgmma body (bf16, head_dim 64 and 128):
+# ((B, Tq, Tk, H, KV, hd, causal, window, cap), q_offset, (block_q,
+# block_k)): each tile, at hd 64 and, with window and cap, at hd 128 (G 8);
+# Tq not a multiple of the tile (200, 384); Tk > Tq with q_offset; G 1, 3
+# and 8; bidirectional; the default tile
+WGMMA_CASES = (
+    [((2, 256, 256, 8, 2, 64, True, None, None), 0, (bq, bk))
+     for bq in (64, 128) for bk in (64, 128)]
+    + [((1, 256, 256, 8, 1, 128, True, 100, 30.0), 0, (bq, bk))
+       for bq in (64, 128) for bk in (64, 128)]
+    + [((2, 200, 200, 6, 6, 64, True, None, None), 0, (128, 64)),
+       ((3, 384, 384, 15, 5, 128, True, None, None), 0, (128, 128)),
+       ((2, 100, 300, 8, 8, 64, True, None, None), 200, (64, 128)),
+       ((2, 130, 400, 16, 2, 128, True, None, 50.0), 270, (128, 64)),
+       ((2, 200, 200, 6, 2, 64, False, None, None), 0, (64, 64)),
+       ((2, 200, 200, 6, 2, 128, True, 64, None), 0, (None, None))])
+
 # (B, S, H, KV, hd, pos, window, cap): the reference's DECODE_CASES
 DECODE_CASES = [
     (2, 512, 8, 2, 64, 300, None, None),
@@ -177,6 +208,36 @@ def _time_ms(fn, iters: int = 20) -> float:
     return a.elapsed_time(b) / iters
 
 
+def _graph_ms(fn, iters: int = 20) -> float:
+    """Device time per call: ``iters`` calls captured once in a CUDA graph,
+    replayed between two CUDA events (the median of 3 replays), so no host
+    work is timed.  A call that cannot be captured raises."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / iters)
+    del graph
+    return sorted(times)[1]
+
+
+def _ms(fn) -> tuple:
+    """(eager ms, device ms) per call of ``fn``."""
+    return _time_ms(fn), _graph_ms(fn)
+
+
 def _wall_ms(fn, iters: int = 3) -> float:
     """Host clock around ``iters`` runs ended by a synchronise, after one
     warm-up run."""
@@ -189,27 +250,21 @@ def _wall_ms(fn, iters: int = 3) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def _k4_ms_in(fn) -> float:
-    """Device time of the SSD-scan launches inside one run of ``fn``: CUDA
-    events recorded on the stream just before and after each launch."""
-    real, pairs = k4.ssd_scan_fwd, []
-
-    def timed(*args, **kw):
-        ev = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        out = real(*args, **kw)
-        ev[1].record()
-        pairs.append(ev)
-        return out
-
-    k4.ssd_scan_fwd = timed
-    try:
-        fn()
-    finally:
-        k4.ssd_scan_fwd = real
+def _profile_in(fn, kernels: tuple) -> tuple:
+    """From torch.profiler's trace of the card over one run of ``fn``: the
+    ms and count of the device's kernels whose names contain each string of
+    ``kernels``, and the ms of all its activity.  A trace with no device
+    time fails."""
     torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in pairs)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert dev, "torch.profiler's trace holds no device time"
+    ms = lambda es: sum(e.time_range.elapsed_us() for e in es) / 1e3  # noqa
+    found = [[e for e in dev if name in e.name] for name in kernels]
+    return [(ms(es), len(es)) for es in found], ms(dev)
 
 
 def _bound(nbytes: float, *work) -> tuple:
@@ -264,19 +319,56 @@ def phase_build() -> None:
                 print(f"[build] {name}: {line.strip()}")
 
 
-def _check_flash(gen, case, dtype) -> tuple:
+def _flash_body(dtype, hd: int) -> str:
+    """The body of the flash kernel that aligned inputs of ``dtype`` and
+    ``hd`` take."""
+    if dtype == torch.float32 or hd == 256:
+        return "cuda_cores"
+    return "wgmma" if k1.wgmma_class(dtype, hd) else "mma_sync"
+
+
+def _check_flash(gen, case, dtype, q_offset=0, tile=(None, None),
+                 body=None, view=False) -> tuple:
+    """The flash kernel against ``attention_ref`` at ``case``, asserting
+    through ``LAUNCHES_BY_BODY`` which body ran (``_flash_body``'s unless
+    given).  ``view``: q, k and v are views 4 elements into rows of hd + 4,
+    so no pointer or stride keeps the 16-byte rule."""
     B, Tq, Tk, H, KV, hd, causal, window, cap = case
-    q, k, v = _qkv(gen, (B, Tq, H, hd), (B, Tk, KV, hd), dtype)
-    out = flash_ops.flash_attention(q, k, v, causal=causal, window=window,
-                                    logit_cap=cap)
-    ref = attention_ref(q, k, v, causal=causal, window=window, logit_cap=cap)
+    q, k, v = _qkv(gen, (B, Tq, H, hd + 4 * view),
+                   (B, Tk, KV, hd + 4 * view), dtype)
+    if view:
+        q, k, v = q[..., 4:], k[..., 4:], v[..., 4:]
+    kw = dict(causal=causal, window=window, logit_cap=cap, q_offset=q_offset)
+    before = dict(k1.LAUNCHES_BY_BODY)
+    out = flash_ops.flash_attention(q, k, v, block_q=tile[0],
+                                    block_k=tile[1], **kw)
+    ref = attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
+    ran = [n for n, c in k1.LAUNCHES_BY_BODY.items() if c != before[n]]
+    assert ran == [body or _flash_body(dtype, hd)], ("flash body", case, ran)
     err = _maxerr(out, ref)
     tol = TOL[dtype]
     assert torch.isfinite(out.float()).all(), ("flash", case, dtype)
     assert torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol), \
-        ("flash kernel disagrees", case, dtype, err)
+        ("flash kernel disagrees", case, dtype, tile, err)
     return err, _relerr(out, ref)
+
+
+def _check_tile(q, k, v, tile, what: str) -> float:
+    """The flash kernel's wgmma body at ``tile`` against ``attention_ref``
+    (causal) on ``q``, ``k``, ``v``, at the bf16 tolerance."""
+    before = k1.LAUNCHES_BY_BODY["wgmma"]
+    out = flash_ops.flash_attention(q, k, v, causal=True, block_q=tile[0],
+                                    block_k=tile[1])
+    ref = attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert k1.LAUNCHES_BY_BODY["wgmma"] == before + 1, \
+        ("flash tile not through the wgmma body", what, tile)
+    assert torch.isfinite(out.float()).all(), ("flash", what, tile)
+    tol = TOL[torch.bfloat16]
+    assert torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol), \
+        ("flash kernel disagrees", what, tile, _maxerr(out, ref))
+    return _maxerr(out, ref)
 
 
 def _check_decode(gen, case, dtype, kvmajor: bool) -> tuple:
@@ -309,8 +401,14 @@ def phase_kernels() -> dict:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
     worst = {"flash": {}, "decode": {}}
+    k1.reset_counts()
     for dtype in (torch.float32, torch.bfloat16):
         fl = [_check_flash(gen, c, dtype) for c in FLASH_CASES + [slice_flash]]
+        if dtype == torch.bfloat16:
+            fl += [_check_flash(gen, c, dtype, q_offset, tile)
+                   for c, q_offset, tile in WGMMA_CASES]
+            fl.append(_check_flash(gen, slice_flash, dtype, body="cuda_cores",
+                                   view=True))
         dc = ([_check_decode(gen, c, dtype, False) for c in DECODE_CASES]
               + [_check_decode(gen, c, dtype, True)
                  for c in KVMAJOR_CASES + [slice_decode]])
@@ -318,27 +416,44 @@ def phase_kernels() -> dict:
             worst[name][dtype] = (max(e for e, _ in res),
                                   max(r for _, r in res), len(res))
     for name, w in worst.items():
-        (f_abs, f_rel, n), (b_abs, b_rel, _) = (w[torch.float32],
-                                                w[torch.bfloat16])
-        print(f"[kernels] {name}: max |kernel - plain| over {n} cases: "
-              f"float32 {f_abs:.3e} (tol 2e-5; {f_rel:.3e} of mean |plain|), "
-              f"bfloat16 {b_abs:.3e} (tol 2e-2; {b_rel:.3e} of mean |plain|)")
+        (f_abs, f_rel, n), (b_abs, b_rel, nb) = (w[torch.float32],
+                                                 w[torch.bfloat16])
+        print(f"[kernels] {name}: max |kernel - plain|: float32 over {n} "
+              f"cases {f_abs:.3e} (tol 2e-5; {f_rel:.3e} of mean |plain|), "
+              f"bfloat16 over {nb} cases {b_abs:.3e} (tol 2e-2; {b_rel:.3e} "
+              f"of mean |plain|)")
+    print(f"[kernels] flash launches by body over the checks (the expected "
+          f"body asserted for each): {k1.LAUNCHES_BY_BODY}")
 
     # timing at the serving path's shapes, in the path's dtype (bf16)
     dt = torch.bfloat16
     q, k, v = _qkv(gen, (BATCH, PROMPT, H, hd), (BATCH, PROMPT, KV, hd), dt)
     f_err = _maxerr(flash_ops.flash_attention(q, k, v, causal=True),
                     attention_ref(q, k, v, causal=True))
-    f_ms = _time_ms(lambda: flash_ops.flash_attention(q, k, v, causal=True))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    # the kernel (wgmma body, default tile) and SDPA in turns: K1, SDPA,
+    # SDPA, K1, each eager and on the device alone
+    turns = {"k1": [], "sdpa": []}
+    for name in ("k1", "sdpa", "sdpa", "k1"):
+        turns[name].append(_ms(
+            (lambda: flash_ops.flash_attention(q, k, v, causal=True))
+            if name == "k1" else
+            (lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))))
+    (f_ms, f_dev), (f_lib, f_lib_dev) = (
+        tuple(sum(x) / 2 for x in zip(*turns[n])) for n in ("k1", "sdpa"))
     f_plain = _time_ms(lambda: attention_ref(q, k, v, causal=True))
+    tiles = {}
+    for bq in k1.TILES:
+        for bk in k1.TILES:
+            _check_tile(q, k, v, (bq, bk), "serving shape")
+            tiles[bq, bk] = _graph_ms(lambda: flash_ops.flash_attention(
+                q, k, v, causal=True, block_q=bq, block_k=bk))
     # the CUDA-core body, which float32 takes, beside its plain version
     q32, k32, v32 = q.float(), k.float(), v.float()
     f32_ms = _time_ms(lambda: flash_ops.flash_attention(q32, k32, v32,
                                                         causal=True))
     f32_plain = _time_ms(lambda: attention_ref(q32, k32, v32, causal=True))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    f_lib = _time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
     pairs = BATCH * H * PROMPT * (PROMPT + 1) // 2      # unmasked (q, k) pairs
     f_bound, f_by = _bound(2 * (2 * q.numel() + 2 * k.numel()),
                            (4 * pairs * hd, BF16_FLOPS))
@@ -349,36 +464,50 @@ def phase_kernels() -> dict:
     d_err = _maxerr(decode_ops.decode_attention_kvmajor(qd, kc, vc, pd),
                     decode_attention_ref(qd, kc.transpose(1, 2),
                                          vc.transpose(1, 2), pos))
-    d_ms = _time_ms(lambda: decode_ops.decode_attention_kvmajor(qd, kc, vc,
-                                                                pd))
+    d_ms, d_dev = _ms(lambda: decode_ops.decode_attention_kvmajor(qd, kc, vc,
+                                                                  pd))
     d_plain = _time_ms(lambda: decode_attention_ref(
         qd, kc.transpose(1, 2), vc.transpose(1, 2), pos))
     live = pos + 1
-    d_lib = _time_ms(lambda: F.scaled_dot_product_attention(
+    d_lib, d_lib_dev = _ms(lambda: F.scaled_dot_product_attention(
         qd[:, :, None], kc[:, :, :live], vc[:, :, :live], enable_gqa=True))
     d_bound, d_by = _bound(2 * (2 * qd.numel() + 2 * BATCH * KV * live * hd),
                            (4 * BATCH * H * live * hd, BF16_FLOPS))
-    print(f"[kernels] flash at {slice_flash[:6]} bf16: kernel {f_ms:.4f} ms, "
-          f"plain {f_plain:.4f} ms, sdpa {f_lib:.4f} ms, bound {f_bound:.4f} "
-          f"ms ({f_by}); float32 (CUDA-core body) kernel {f32_ms:.4f} ms, "
-          f"plain {f32_plain:.4f} ms")
-    print(f"[kernels] decode at {slice_decode[:6]} bf16: kernel {d_ms:.4f} "
-          f"ms, plain {d_plain:.4f} ms, sdpa {d_lib:.4f} ms, bound "
+    shown = "; ".join(
+        f"{n} " + ", ".join(f"eager {e:.4f} ms, device {d:.4f} ms"
+                            for e, d in turns[n]) for n in ("k1", "sdpa"))
+    print(f"[kernels] flash at {slice_flash[:6]} bf16 (wgmma body, default "
+          f"tile), in turns K1, SDPA, SDPA, K1: {shown}")
+    print(f"[kernels] flash at {slice_flash[:6]} bf16: kernel eager "
+          f"{f_ms:.4f} ms, device {f_dev:.4f} ms; plain {f_plain:.4f} ms; "
+          f"sdpa eager {f_lib:.4f} ms, device {f_lib_dev:.4f} ms; bound "
+          f"{f_bound:.4f} ms ({f_by}); float32 (CUDA-core body) kernel "
+          f"{f32_ms:.4f} ms, plain {f32_plain:.4f} ms")
+    print(f"[kernels] flash at {slice_flash[:6]} bf16, device ms of each "
+          f"wgmma tile (block_q x block_k), each first held against the "
+          f"plain version at 2e-2 and its body asserted: " + ", ".join(
+              f"{bq}x{bk} {ms:.4f}" for (bq, bk), ms in tiles.items())
+          + f" (default {k1.DEFAULT_TILE[0]}x{k1.DEFAULT_TILE[1]})")
+    print(f"[kernels] decode at {slice_decode[:6]} bf16: kernel eager "
+          f"{d_ms:.4f} ms, device {d_dev:.4f} ms; plain {d_plain:.4f} ms; "
+          f"sdpa eager {d_lib:.4f} ms, device {d_lib_dev:.4f} ms; bound "
           f"{d_bound:.4f} ms ({d_by})")
     return {
         "flash": dict(name="flash_attention_fwd", route="cuda",
                       source="src/repro_torch/kernels/csrc/flash_attention.cu",
                       replaces="src/repro/kernels/flash_attention/"
                                "flash_attention.py:111",
-                      max_abs_err=f_err, ms=f_ms, plain_ms=f_plain,
-                      bound_ms=f_bound, bound_by=f_by, library_ms=f_lib),
+                      max_abs_err=f_err, ms=f_ms, device_ms=f_dev,
+                      plain_ms=f_plain, bound_ms=f_bound, bound_by=f_by,
+                      library_ms=f_lib, library_device_ms=f_lib_dev),
         "decode": dict(name="decode_attention_fwd", route="cuda",
                        source="src/repro_torch/kernels/csrc/"
                               "decode_attention.cu",
                        replaces="src/repro/kernels/decode_attention/"
                                 "decode_attention.py:90",
-                       max_abs_err=d_err, ms=d_ms, plain_ms=d_plain,
-                       bound_ms=d_bound, bound_by=d_by, library_ms=d_lib),
+                       max_abs_err=d_err, ms=d_ms, device_ms=d_dev,
+                       plain_ms=d_plain, bound_ms=d_bound, bound_by=d_by,
+                       library_ms=d_lib, library_device_ms=d_lib_dev),
     }
 
 
@@ -455,14 +584,15 @@ def phase_ssd() -> dict:
     err = max(_maxerr(y, yr), _maxerr(st, sr))
     xdt = (x * dt[..., None]).transpose(1, 2).contiguous()
     dA = (dt * A).transpose(1, 2)[..., None].contiguous()
-    ms = _time_ms(lambda: k4.ssd_scan_fwd(xdt, dA, Bm, Cm, chunk=chunk))
+    ms, dev = _ms(lambda: k4.ssd_scan_fwd(xdt, dA, Bm, Cm, chunk=chunk))
     wrap = _time_ms(lambda: ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk))
     plain = _time_ms(lambda: ssd_chunked(x, dt, A, Bm, Cm, chunk))
     nbytes, work = _ssd_work(case, torch.bfloat16)
     bound, by = _bound(nbytes, *work)
     (cb, _), (f32, _) = work
     print(f"[kernels] ssd_scan at (B, T, H, P, N, chunk) {case} bf16 B/C: "
-          f"kernel {ms:.4f} ms (through the model's wrapper, with xdt and dA "
+          f"kernel eager {ms:.4f} ms, device {dev:.4f} ms (through the "
+          f"model's wrapper, with xdt and dA "
           f"formed: {wrap:.4f} ms), plain {plain:.4f} ms (ssd_chunked on "
           f"the wrapper's inputs), bound {bound:.4f} ms ({by}: C B^T "
           f"{cb / 1e9:.3f} GFLOP once per batch and chunk at the bf16 "
@@ -472,8 +602,9 @@ def phase_ssd() -> dict:
     return dict(name="ssd_scan_fwd", route="cuda",
                 source="src/repro_torch/kernels/csrc/ssd_scan.cu",
                 replaces="src/repro/kernels/ssd_scan/ssd_scan.py:80",
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-                bound_by=by, library_ms=None)
+                max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain,
+                bound_ms=bound, bound_by=by, library_ms=None,
+                library_device_ms=None)
 
 
 def _paged_inputs(gen, case, dtype, shuffle: bool) -> tuple:
@@ -520,14 +651,15 @@ def _check_paged(gen, case, dtype, shuffle: bool = True,
 
 
 def _paged_timing(gen, case, dtype) -> tuple:
-    """(kernel ms, plain ms, bound ms, bound_by, max |err|) at ``case``.
+    """(kernel eager ms, kernel device ms, plain ms, bound ms, bound_by,
+    max |err|, live keys, bytes) at ``case``.
     The bound counts the live keys' K and V, q and o, and the table
     entries of the live pages, each moved once."""
     B, S, H, KV, hd, psz, lens, _, _ = case
     q, kp, vp, lens_t, tbl = _paged_inputs(gen, case, dtype, True)
     err = _maxerr(decode_ops.paged_decode_attention(q, kp, vp, lens_t, tbl),
                   paged_decode_attention_ref(q, kp, vp, lens_t, tbl))
-    ms = _time_ms(lambda: decode_ops.paged_decode_attention(q, kp, vp,
+    ms, dev = _ms(lambda: decode_ops.paged_decode_attention(q, kp, vp,
                                                             lens_t, tbl))
     plain = _time_ms(lambda: paged_decode_attention_ref(q, kp, vp, lens_t,
                                                         tbl))
@@ -537,7 +669,7 @@ def _paged_timing(gen, case, dtype) -> tuple:
     nbytes = size * (2 * live * KV * hd + 2 * B * H * hd) + 4 * (pages + B)
     peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
     bound, by = _bound(nbytes, (4 * live * H * hd, peak))
-    return ms, plain, bound, by, err, live, nbytes
+    return ms, dev, plain, bound, by, err, live, nbytes
 
 
 def phase_paged() -> dict:
@@ -566,22 +698,24 @@ def phase_paged() -> dict:
     rows = {}
     for name, case, dtype in (("smollm", PAGED_SMOLLM, torch.bfloat16),
                               ("ragged", PAGED_RAGGED, torch.float32)):
-        ms, plain, bound, by, err, live, nbytes = _paged_timing(gen, case,
-                                                                dtype)
-        rows[name] = (ms, plain, bound, by, err)
+        ms, dev, plain, bound, by, err, live, nbytes = _paged_timing(
+            gen, case, dtype)
+        rows[name] = (ms, dev, plain, bound, by, err)
         print(f"[kernels] paged_decode_attention at (B, S, H, KV, hd, psz) "
-              f"{case[:6]} lens {case[6]} {str(dtype)[6:]}: kernel {ms:.4f} "
-              f"ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({by}: "
+              f"{case[:6]} lens {case[6]} {str(dtype)[6:]}: kernel eager "
+              f"{ms:.4f} ms, device {dev:.4f} ms; plain {plain:.4f} ms, "
+              f"bound {bound:.4f} ms ({by}: "
               f"{live} live keys, {nbytes / 1e6:.3f} MB); no single "
               f"PyTorch call reads a block table")
-    ms, plain, bound, by, err = rows["smollm"]
+    ms, dev, plain, bound, by, err = rows["smollm"]
     return dict(name="paged_decode_attention_fwd", route="cuda",
                 source="src/repro_torch/kernels/csrc/"
                        "paged_decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention/"
                          "paged_decode_attention.py:103",
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-                bound_by=by, library_ms=None)
+                max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain,
+                bound_ms=bound, bound_by=by, library_ms=None,
+                library_device_ms=None)
 
 
 def _bound_used(got, want, atol, rtol) -> float:
@@ -699,11 +833,16 @@ def _model_run(arch: str, dtype: str, steps: int) -> None:
         floor, rtol = _maxerr(l64, lx), 0.0
         atol = {"prefill": max(3e-2, 2 * floor),
                 "decode": max(5e-2, 2 * floor)}
-    k1.LAUNCHES = k2.LAUNCHES = k4.LAUNCHES = 0
+    k1.reset_counts()
+    k2.LAUNCHES = k4.LAUNCHES = 0
     lk, ck = api.prefill(params, batch, cfg_k, capacity=cap)
     torch.cuda.synchronize()
     assert (k1.LAUNCHES, k2.LAUNCHES, k4.LAUNCHES) == (n_attn, 0, n_mamba), \
         ("prefill launches", k1.LAUNCHES, k2.LAUNCHES, k4.LAUNCHES)
+    body = _flash_body(torch_dtype(cfg), cfg.head_dim) if n_attn else None
+    assert k1.LAUNCHES_BY_BODY.get(body, 0) == k1.LAUNCHES, \
+        ("flash launches not all through the", body, "body",
+         k1.LAUNCHES_BY_BODY)
     flips = _check_logits(lk, lx, atol["prefill"], rtol, "prefill logits")
     p_err, p_jax = _maxerr(lk, lx), _bound_used(lk, lx, 3e-2, 3e-2)
     d_err = d_jax = 0.0
@@ -734,14 +873,23 @@ def _model_run(arch: str, dtype: str, steps: int) -> None:
         if n_attn:
             _lookup_cost(cfg, n_attn, lambda: api.decode_step(
                 params, ck, tok, pos - 1, cfg_k))
-        share = ""
-        if n_mamba:
-            k4_ms = _k4_ms_in(run_prefill)
-            share = (f" (of which ssd_scan {k4_ms:.2f} ms of device time "
-                     f"over {n_mamba} launches, {k4_ms / pre_ms:.1%})")
         print(f"[model] {cfg.name} bf16 kernel path, host clock around "
-              f"synchronised runs: prefill {BATCH}x{PROMPT} {pre_ms:.2f} ms"
-              f"{share}, decode step {step_ms:.2f} ms")
+              f"synchronised runs: prefill {BATCH}x{PROMPT} {pre_ms:.2f} ms, "
+              f"decode step {step_ms:.2f} ms")
+        names = (("flash", "flash_fwd_wgmma_kernel", n_attn),
+                 ("ssd_scan", "ssd_scan_kernel", n_mamba))
+        kern, busy = _profile_in(run_prefill, tuple(k for _, k, _ in names))
+        parts = []
+        for (label, _, want), (ms, n) in zip(names, kern):
+            assert n == want, (label, n, want)
+            if want:
+                parts.append(f"{label} {ms:.3f} ms over {n} kernels, "
+                             f"{ms / pre_ms:.1%} of the prefill")
+        print(f"[model] {cfg.name} bf16 prefill under torch.profiler "
+              f"(kernel time on the card alone): {'; '.join(parts)}; all "
+              f"device activity {busy:.2f} ms, against the {pre_ms:.2f} ms "
+              f"of an unprofiled prefill on the host clock (device idle "
+              f"share {1 - busy / pre_ms:.1%})")
     bound = ("atol = rtol = 1e-4" if floor is None else
              f"atol {atol['prefill']:.3e} / {atol['decode']:.3e}, plain-path "
              f"rounding floor {floor:.3e}")
@@ -752,7 +900,8 @@ def _model_run(arch: str, dtype: str, steps: int) -> None:
           f"JAX 2-layer bounds used: prefill {p_jax:.2f} (3e-2), decode "
           f"{d_jax:.2f} (5e-2); argmax differs on {flips} of "
           f"{BATCH * (steps + 1)} rows (near-ties only); launches flash "
-          f"{counts[0]} decode {counts[1]} ssd_scan {counts[2]} (= "
+          f"{counts[0]}{f' (all {body})' if body else ''} decode {counts[1]} "
+          f"ssd_scan {counts[2]} (= "
           f"{n_attn} flash and {n_mamba} ssd_scan per prefill, {n_attn} "
           f"decode per decode step)")
     del params, ck, lk, lx
@@ -783,11 +932,15 @@ def _serve(arch: str, max_bs: int, max_mtl: int, steps: int) -> dict:
                            max_mtl=max_mtl)
     eng = ServingEngine(ex, slo, instance_launch_s=0.2)
     torch.cuda.synchronize()
-    k1.LAUNCHES = k2.LAUNCHES = k4.LAUNCHES = 0
+    k1.reset_counts()
+    k2.LAUNCHES = k4.LAUNCHES = 0
     acc = eng.run(ctrl, max_steps=steps)
     torch.cuda.synchronize()
     launches = {"flash": k1.LAUNCHES, "decode": k2.LAUNCHES,
                 "ssd_scan": k4.LAUNCHES}
+    assert k1.LAUNCHES_BY_BODY["wgmma"] == k1.LAUNCHES, \
+        ("served flash launches not all through the wgmma body",
+         k1.LAUNCHES_BY_BODY)
     s, batches = acc.summary(), len(acc.trace)
     act = ctrl.action()
     cs = ex.cache_stats
@@ -811,7 +964,8 @@ def _serve(arch: str, max_bs: int, max_mtl: int, steps: int) -> dict:
                     for k, v in launches.items())
     print(f"[serving] kernel launches over the engine's run ({batches} "
           f"served batches, {s['items']} served requests): {per}; per batch "
-          f"{n_attn} flash, {n_attn * STEPS} decode, {n_mamba} ssd_scan")
+          f"{n_attn} flash{' (all wgmma)' if n_attn else ''}, "
+          f"{n_attn * STEPS} decode, {n_mamba} ssd_scan")
     del ex, ctrl, eng
     torch.cuda.empty_cache()
     return launches
@@ -873,19 +1027,36 @@ def _check_paged_class(dtype, dims) -> float:
     return max(errs)
 
 
+def _check_flash_class(dtype, dims) -> float:
+    """K1 against its plain version on the inputs the tuning times it on
+    (``autotune.flash_inputs``), at every wgmma tile it may time."""
+    cls = autotune.shape_class("flash_attention", **dims)
+    q, k, v = autotune.flash_inputs(cls, dtype, DEV)
+    err = max(_check_tile(q, k, v, (bq, bk), str(cls))
+              for bq in k1.TILES for bk in k1.TILES)
+    print(f"[autotune] flash_attention at the tuned class {cls} "
+          f"{str(dtype)[6:]}, wgmma tiles {k1.TILES} x {k1.TILES}: max "
+          f"|kernel - plain| {err:.3e} (tol {TOL[dtype]:g})")
+    return err
+
+
 def phase_autotune() -> int:
     """``autotune.tune`` of the serving shape classes (``_tune_classes``),
-    after K3 is held against its plain version on the paged class's own
-    inputs.  Every candidate runs its kernel.  A second tuning times
+    after K1 and K3 are held against their plain versions on the flash and
+    paged classes' own inputs at every tile and page size.  Every candidate
+    runs its kernel, timed on the device alone.  A second tuning times
     nothing, the generation bumps once per new class, and
-    ``resolve_page_size`` returns the tuned page size.  Returns the paged
-    kernel's launches over the tuning; then serves SmolLM briefly on the
-    tuned cache."""
+    ``resolve_page_size`` returns the tuned page size; a view of the tuned
+    flash class that breaks the 16-byte rule takes the CUDA-core body at
+    its own tile.  Returns the paged kernel's launches over the tuning;
+    then serves SmolLM briefly on the tuned cache."""
     classes = _tune_classes()
+    _check_flash_class(*classes[0][1:])
     _check_paged_class(*classes[2][1:])
     gen0 = autotune.generation()
     torch.cuda.synchronize()
-    k1.LAUNCHES = k2.LAUNCHES = k3.LAUNCHES = k4.LAUNCHES = 0
+    k1.reset_counts()
+    k2.LAUNCHES = k3.LAUNCHES = k4.LAUNCHES = 0
     t0 = time.perf_counter()
     entries = _tune_all(classes)
     torch.cuda.synchronize()
@@ -902,14 +1073,19 @@ def phase_autotune() -> int:
               f"{e['backend']}: chose {e['config']} at "
               f"{e['us_per_call']:.2f} us (default {e['default_us']} us); "
               f"candidates (us, median of 3 after a warm-up): {timed}")
-    paged = entries[2]
+    flash, paged = entries[0], entries[2]
+    per = 1 + autotune.GRAPH_CALLS     # a warm-up and the captured calls
+    tiles = [json.loads(c) for c in flash["candidates_timed"]]
+    assert len(tiles) == 4 and launches["flash"] == per * len(tiles), \
+        ("the flash class's four wgmma tiles", tiles, launches)
+    assert k1.LAUNCHES_BY_BODY["wgmma"] == k1.LAUNCHES, k1.LAUNCHES_BY_BODY
     sizes = [json.loads(c)["page_size"] for c in paged["candidates_timed"]]
-    runs = len(sizes) * 4                       # a warm-up and 3 timed runs
-    assert launches["paged"] == runs, (launches, sizes)
+    assert launches["paged"] == per * len(sizes), (launches, sizes)
     print(f"[autotune] {len(classes)} classes in {tune_s * 1e3:.1f} ms, "
           f"{stats['timings']} candidates timed; generation {gen0} -> "
           f"{stats['generation']}; launches over the tuning: {launches} "
-          f"(paged: {len(sizes)} page sizes x {runs // len(sizes)} runs)")
+          f"(per candidate a warm-up and {autotune.GRAPH_CALLS} calls "
+          f"captured in the graph it replays)")
 
     assert _tune_all(classes) == entries
     assert autotune.cache_stats()["timings"] == stats["timings"]
@@ -921,6 +1097,15 @@ def phase_autotune() -> int:
     assert psz == paged["config"]["page_size"], (psz, paged["config"])
     print(f"[autotune] a second tuning timed nothing and kept generation "
           f"{autotune.generation()}; resolve_page_size -> {psz}")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(14)
+    view = (BATCH, PROMPT, PROMPT, smollm.num_heads, smollm.num_kv_heads,
+            smollm.head_dim, True, None, None)
+    err, _ = _check_flash(gen, view, classes[0][1], body="cuda_cores",
+                          view=True)
+    print(f"[autotune] a view off the 16-byte rule of the tuned flash class "
+          f"(tuned tile {flash['config']}): CUDA-core body at its own tile, "
+          f"max |kernel - plain| {err:.3e}")
 
     hits = autotune.cache_stats()["hits"]
     _serve(ARCH, 8, 1, 10)

@@ -3,32 +3,55 @@
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention/flash_attention.py
 // (flash_attention_fwd, body _kernel).
 //
-// One block per (batch x kv-head, query tile).  The block's rows are the
-// query tile's positions times the G query heads of the kv head (the GQA
-// group folded into the rows, as the TPU kernel does), so every K/V tile
-// staged in shared memory serves all G heads.  Every K tile that causality,
-// the window or the key length masks completely is skipped, which halves
-// causal work, and the ragged q and k edges are masked here, so the caller
-// never pads.
-//
-// Bound on the card: per (batch, kv head) the work is 4 * G * (unmasked
-// query-key pairs) * hd operations against q, k, v and o moved once.  At the
-// serving path's shapes (T 512, hd 64, G 3, causal) that is about 190
-// operations per byte, just under the H100's bf16 ridge of ~295, so the
+// Bound on the card: the work is 4 * (unmasked query-key pairs) * hd
+// operations per query head against q, k, v and o moved once.  At the
+// serving path's shapes (T 512, hd 64, GQA group 3, causal) that is about
+// 190 operations per byte, under the H100's bf16 ridge of ~295, so the
 // least time is set by the bytes, with the operations close behind: only
-// the tensor cores come near either.  Two bodies:
-//  - flash_fwd_mma_kernel (bf16, head_dim a multiple of 16 up to 128, 16-byte
-//    aligned operands): each of 4 warps owns 16 rows and runs QK^T and PV as
-//    mma.sync m16n8k16 bf16 products with float32 accumulators; the scores
-//    stay in registers and become the A operand of PV, as in FlashAttention-2.
-//  - flash_fwd_kernel (float32, and the other head sizes): CUDA cores.  Each
+// the tensor cores come near either.  Every K tile that causality, the
+// window or the key length masks completely is skipped by the loop
+// bounds, and the ragged q and k edges are masked here, so the caller never
+// pads.  Three bodies, chosen in flash_attention_fwd:
+//  - flash_fwd_wgmma_kernel (bf16, head_dim 64 or 128, 16-byte aligned
+//    operands and strides): one block per (query tile of BM positions,
+//    query head, batch), the heaviest causal tiles first.  A producer warp
+//    loads the Q tile once and keeps K/V tiles of BN keys in flight with TMA
+//    (128-byte swizzle) in a ring of WG_STAGES shared-memory stages guarded
+//    by full/empty mbarriers; each consumer warpgroup owns 64 query rows
+//    and runs S = Q K^T as wgmma with both operands in shared memory, the
+//    online softmax on the accumulator fragment (in the log2 domain, one
+//    ex2.approx per score), and O += P V as wgmma with P in registers and V
+//    read MN-major through the descriptor's transpose bit.  The GQA group
+//    is not folded into the rows as on the TPU: the G query heads of a kv
+//    head re-read its K/V tiles, from L2.  Registers are budgeted for two
+//    or three blocks per SM, whose softmax and products interleave.
+//    Measured on an H100 at 700 W (chip_smoke.py, PERF.md) at the serving
+//    shape: about 0.025 ms on the device against a 0.0063 ms bound and
+//    SDPA's 0.023 ms.  What holds it back: each warpgroup's softmax runs
+//    between its two products, not beside them (FlashAttention-3's overlap
+//    of the next tile's Q K^T with this tile's softmax measured slower
+//    here, for its registers); at head_dim 64 the special-function unit's
+//    exponentials take as long as the tensor cores' products; a block with
+//    few key tiles pays the latency of its first loads; and every (query
+//    tile, head) reads its K/V tiles from L2 again.
+//  - flash_fwd_mma_kernel (bf16, the other head sizes that are multiples of
+//    16 up to 128, 16-byte aligned operands): one block per (batch x kv
+//    head, query tile) with the GQA group folded into the rows; each of 4
+//    warps owns 16 rows and runs QK^T and PV as mma.sync m16n8k16.
+//  - flash_fwd_kernel (float32, head_dim 256, and views the tensor-core
+//    bodies cannot read): CUDA cores, the group folded into the rows.  Each
 //    warp owns up to RW rows and keeps their online-softmax state in float32
 //    registers; lane j scores keys j and j + 32 of the tile, and the PV
 //    product gives each lane head_dim / 32 output columns.
 //
-// Numerics match the reference: scores are float32 products scaled after
-// the QK product, P is rounded to V's dtype before the PV product while l
-// sums the unrounded P, and finalisation divides by max(l, 1e-30).
+// Numerics match the reference in every body: scores are float32 products
+// scaled after the QK product, P is rounded to V's dtype before the PV
+// product while l sums the unrounded P, masked scores are the finite
+// NEG_INF, and finalisation divides by max(l, 1e-30).
+#include <cuda.h>   // CUtensorMap; its encoder is fetched through the runtime
+
+#include <cstdint>
+
 #include "attn_common.cuh"
 
 namespace {
@@ -143,7 +166,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core body (bf16).  Fragment layouts are those of PTX's
+// mma.sync body (bf16 at the head sizes the Hopper body does not take).
+// Fragment layouts are those of PTX's
 // mma.m16n8k16 for 16-bit A/B: lane = 4 * gid + tig; A holds rows gid and
 // gid + 8 at columns 2 * tig (+1) and 2 * tig + 8 (+1); B holds rows 2 * tig
 // (+1) and 2 * tig + 8 (+1) of column gid; C holds rows gid, gid + 8 at
@@ -347,7 +371,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int
   return cudaGetLastError();
 }
 
-// The tensor-core body takes bf16 with head_dim a multiple of 16 up to 128
+// The mma.sync body takes bf16 with head_dim a multiple of 16 up to 128
 // and operands it can read 16 bytes at a time.
 bool mma_ok(int dtype, int hd, const void* q, const void* k, const void* v, const void* o,
             const long long* st) {
@@ -375,6 +399,545 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v, void* o, i
     case 128: return launch_mma<128>(q, k, v, o, B, Tq, Tk, KV, G, st, block_q, causal, window, logit_cap, q_offset, scale, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// Hopper body (bf16, head_dim 64 or 128).  Shared memory, from a 1024-byte
+// aligned base (the 128-byte swizzle's period): the Q tile, then WG_STAGES
+// K tiles, then WG_STAGES V tiles, then the mbarriers.  Every tile is kept
+// as head_dim / 64 column halves of rows of 128 bytes, each half one TMA
+// box, as TMA writes them with CU_TENSOR_MAP_SWIZZLE_128B: row r at byte
+// 128 r, its 16-byte chunk c at chunk c ^ (r % 8).  That is wgmma's
+// 128-byte-swizzle canonical layout with 8-row groups 1024 bytes apart.
+// ---------------------------------------------------------------------------
+constexpr int WG_STAGES = 2;                 // K/V tiles in flight
+constexpr int WG_TILES[2] = {64, 128};       // BM and BN each (dispatch_wgmma)
+constexpr int WG_BM = 64, WG_BN = 64;        // the default tile
+
+__host__ __device__ constexpr int wgmma_smem_bytes(int hd, int bm, int bn) {
+  return 1024 /* alignment slack */ + 2 * hd * (bm + 2 * WG_STAGES * bn) +
+         8 * (2 * WG_STAGES + 1);
+}
+
+// Blocks per SM each instance's register budget is cut for: three of 64
+// rows and two of 128 where the scores and the output fit (head_dim 64 and
+// 64-key tiles), else two of 64 and one of 128.
+__host__ __device__ constexpr int wgmma_min_blocks(int hd, int bm, int bn) {
+  return hd == 64 && bn == 64 ? (bm == 64 ? 3 : 2) : (bm == 64 ? 2 : 1);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed.  A wait of more
+// than 2^32 cycles (seconds) can only be a fault: the kernel traps, and the
+// launch fails with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  long long start = -1;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start < 0) start = clock64();
+    else if (clock64() - start > (1ll << 32)) __trap();
+  }
+}
+
+// One box of a 4-D tensor map into shared memory; completion is counted on
+// `bar` in bytes.  Coordinates are innermost first; rows past the tensor's
+// extent arrive as zeros.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Registers a wgmma reads or writes asynchronously: the empty asm keeps the
+// compiler from moving their other uses across the fence / wait around it.
+template <int N> __device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N> __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x on the special-function unit (relative error about 2^-22; results
+// below float32's normal range flush to zero).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled tile at `addr`:
+// 8-row groups 1024 bytes apart (stride byte offset); `lbo` is the leading
+// byte offset, which only the MN-major V operand reads (the distance between
+// its 64-column halves).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// wgmma m64nNk16, bf16 in, float32 accumulators.  The accumulator fragment
+// of a 64 x N tile: thread t of the warpgroup holds rows 16 (t / 32) + gid
+// and + 8 (gid = t % 32 / 4), columns 8 i + 2 tig and + 1 (tig = t % 4) in
+// d[4 i .. 4 i + 3] -- the m16n8 layout of each warp repeated over N / 8.
+template <int N> struct Wgmma;
+
+template <> struct Wgmma<64> {
+  // D (64 x 64) += A B: A and B from shared memory, both K-major
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da, uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+  }
+  // D (64 x 64) += A B: A from registers, B from shared memory, MN-major
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <> struct Wgmma<128> {
+  // D (64 x 128) += A B: A and B from shared memory, both K-major
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da, uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+  }
+  // D (64 x 128) += A B: A from registers, B from shared memory, MN-major
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+
+template <int HD, int BM, int BN>
+__global__ void __launch_bounds__(BM / 64 * 128 + 32, wgmma_min_blocks(HD, BM, BN))
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                       int B, int H, int Tq, int Tk, int G, long long o_sb, long long o_st,
+                       long long o_sh, int causal, int window, float logit_cap, int q_offset,
+                       float scale) {
+  using namespace attn;
+  constexpr int NC = BM / 64;                // consumer warpgroups
+  constexpr int HALVES = HD / 64;            // 128-byte column halves of a row
+  constexpr int Q_BYTES = BM * HD * 2;
+  constexpr int T_BYTES = BN * HD * 2;       // one K or V tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + Q_BYTES;          // stage s at sK + s * T_BYTES
+  const uint32_t sV = sK + WG_STAGES * T_BYTES;
+  const uint32_t bar_full = sV + WG_STAGES * T_BYTES;   // + 8 s
+  const uint32_t bar_empty = bar_full + 8 * WG_STAGES;  // + 8 s
+  const uint32_t bar_q = bar_empty + 8 * WG_STAGES;
+
+  // block -> (query tile, head, batch), the last (heaviest causal) tile first
+  const int ntq = (Tq + BM - 1) / BM;
+  int idx = blockIdx.x;
+  const int h = idx % H;
+  idx /= H;
+  const int b = idx % B;
+  const int p0 = (ntq - 1 - idx / B) * BM;
+  const int nq = min(BM, Tq - p0);
+
+  // keys any row of this tile can see
+  const int q_lo = q_offset + p0, q_hi = q_offset + p0 + nq - 1;
+  const int k_end = causal ? min(Tk, q_hi + 1) : Tk;
+  int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
+  k_begin = (k_begin / BN) * BN;
+  const int ntiles = k_end > k_begin ? (k_end - k_begin + BN - 1) / BN : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, NC * 4);  // one arrival per consumer warp
+    }
+    mbar_init(bar_q, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == NC * 4) {                      // the producer warp
+    if (lane == 0) {
+      const int hk = h / G;
+      mbar_expect_tx(bar_q, Q_BYTES);
+      for (int c = 0; c < HALVES; ++c) tma_load(sQ + c * BM * 128, &tq, bar_q, c * 64, h, p0, b);
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % WG_STAGES;
+        const int k0 = k_begin + it * BN;
+        mbar_wait(bar_empty + 8 * s, ((it / WG_STAGES) & 1) ^ 1);   // the stage is free
+        mbar_expect_tx(bar_full + 8 * s, 2 * T_BYTES);
+        for (int c = 0; c < HALVES; ++c) {
+          tma_load(sK + s * T_BYTES + c * BN * 128, &tk, bar_full + 8 * s, c * 64, hk, k0, b);
+          tma_load(sV + s * T_BYTES + c * BN * 128, &tv, bar_full + 8 * s, c * 64, hk, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer thread: rows row0 and row0 + 8 of the tile
+  const int wg = warp >> 2, gid = lane >> 2, tig = lane & 3;
+  const int row0 = wg * 64 + (warp & 3) * 16 + gid;
+  const int qp0 = q_lo + row0, qp1 = qp0 + 8;
+  const uint32_t sQw = sQ + wg * 64 * 128;   // this warpgroup's 64 rows
+
+  // scores, and the running maxima m, are kept in the log2 domain (times
+  // log2 e), so each exponential is one exp2_approx
+  const float scale2 = scale * LOG2E;
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+  mbar_wait(bar_q, 0);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % WG_STAGES;
+    const int k0 = k_begin + it * BN;
+    const uint32_t sKs = sK + s * T_BYTES, sVs = sV + s * T_BYTES;
+    mbar_wait(bar_full + 8 * s, (it / WG_STAGES) & 1);
+
+    // S = Q K^T: head_dim / 16 k-steps, each 32 bytes along a swizzled row
+    float sc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      Wgmma<BN>::ss(sc, sw128_desc(sQw + (kk >> 2) * BM * 128 + (kk & 3) * 32, 16),
+                    sw128_desc(sKs + (kk >> 2) * BN * 128 + (kk & 3) * 32, 16), kk > 0);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(sc);
+
+    // scale, cap; the elementwise mask only on tiles that cross the
+    // diagonal, the window's edge or Tk.  Each is a pass branched once per
+    // tile (a select per score let the compiler evaluate the cap's tanh
+    // for every score)
+    const bool edge = k0 + BN > Tk || (causal && k0 + BN - 1 > q_lo) ||
+                      (window > 0 && k0 <= q_hi - window);
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+    if (logit_cap > 0.f) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) sc[i] = cap_logit(sc[i] * scale, logit_cap) * LOG2E;
+    } else {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) sc[i] *= scale2;
+    }
+    if (edge) {
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = k0 + n * 8 + 2 * tig + (e & 1);
+          const int qp = e < 2 ? qp0 : qp1;
+          const bool ok = kp < Tk && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
+          if (!ok) sc[4 * n + e] = NEG_INF;
+        }
+    }
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * n], sc[4 * n + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {  // the 4 lanes that share a row
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float c0 = exp2_approx(m0 - mn0), c1 = exp2_approx(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n) {
+      sc[4 * n] = exp2_approx(sc[4 * n] - mn0);
+      sc[4 * n + 1] = exp2_approx(sc[4 * n + 1] - mn0);
+      sc[4 * n + 2] = exp2_approx(sc[4 * n + 2] - mn1);
+      sc[4 * n + 3] = exp2_approx(sc[4 * n + 3] - mn1);
+      sum0 += sc[4 * n] + sc[4 * n + 1];
+      sum1 += sc[4 * n + 2] + sc[4 * n + 3];
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
+      sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
+    }
+    l0 = l0 * c0 + sum0;
+    l1 = l1 * c1 + sum1;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      acc[4 * n] *= c0;
+      acc[4 * n + 1] *= c0;
+      acc[4 * n + 2] *= c1;
+      acc[4 * n + 3] *= c1;
+    }
+
+    // O += P V, P rounded to bf16 in registers: the score blocks 2 kk and
+    // 2 kk + 1 are the A fragment of the kk-th 16-key step; V's 16 rows of
+    // that step start 2048 bytes apart
+    uint32_t pa[BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+    fence_regs(acc);
+    fence_regs(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      Wgmma<HD>::rs(acc, pa[kk], sw128_desc(sVs + kk * 16 * 128, BN * 128));
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(acc);
+    fence_regs(pa);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * s);   // this warp is done with the stage
+  }
+
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  const int t0 = p0 + row0, t1 = t0 + 8;
+  __nv_bfloat16* o0 = o + b * o_sb + (long long)t0 * o_st + (long long)h * o_sh;
+  __nv_bfloat16* o1 = o0 + 8 * o_st;
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    const int c = n * 8 + 2 * tig;
+    if (t0 < Tq)
+      *reinterpret_cast<unsigned*>(o0 + c) = pack_bf16(acc[4 * n] * inv0, acc[4 * n + 1] * inv0);
+    if (t1 < Tq)
+      *reinterpret_cast<unsigned*>(o1 + c) =
+          pack_bf16(acc[4 * n + 2] * inv1, acc[4 * n + 3] * inv1);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, fetched once through the runtime, so
+// the library does not link against libcuda.
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault) == cudaSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map {hd, heads, T, batch} over a bf16 tensor's own strides (in
+// elements: per head, per position, per batch), boxes of 64 columns x 1
+// head x `rows` positions x 1 batch, 128-byte swizzle, zeros past the edges.
+bool encode_map(CUtensorMap* map, const void* ptr, int hd, int heads, int T, int B,
+                long long s_h, long long s_t, long long s_b, int rows) {
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)s_h * 2, (cuuint64_t)s_t * 2, (cuuint64_t)s_b * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD, int BM, int BN>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int Tq,
+                         int Tk, int KV, int G, const long long* st, int causal, int window,
+                         float logit_cap, int q_offset, float scale, cudaStream_t stream) {
+  constexpr int SMEM = wgmma_smem_bytes(HD, BM, BN);
+  auto kern = flash_fwd_wgmma_kernel<HD, BM, BN>;
+  static unsigned long long ready = 0;       // the attribute is set once per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (!(ready >> dev & 1ull)) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return err;
+    ready |= 1ull << dev;
+  }
+  const int H = KV * G;
+  CUtensorMap tq, tk, tv;
+  if (!encode_map(&tq, q, HD, H, Tq, B, st[2], st[1], st[0], BM) ||
+      !encode_map(&tk, k, HD, KV, Tk, B, st[5], st[4], st[3], BN) ||
+      !encode_map(&tv, v, HD, KV, Tk, B, st[8], st[7], st[6], BN))
+    return cudaErrorInvalidValue;
+  const long long blocks = (long long)((Tq + BM - 1) / BM) * H * B;
+  kern<<<(unsigned)blocks, BM / 64 * 128 + 32, SMEM, stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)o, B, H, Tq, Tk, G, st[9], st[10], st[11], causal, window,
+      logit_cap, q_offset, scale);
+  return cudaGetLastError();
+}
+
+// The Hopper body takes bf16 at head_dim 64 or 128 with 16-byte aligned
+// operands and strides that are positive multiples of 16 bytes (TMA's rule).
+bool wgmma_ok(int dtype, int hd, int Tq, int Tk, const void* q, const void* k, const void* v,
+              const void* o, const long long* st) {
+  if (dtype != 1 || (hd != 64 && hd != 128) || Tq < 1 || Tk < 1) return false;
+  const unsigned long long addr = (unsigned long long)q | (unsigned long long)k |
+                                  (unsigned long long)v | (unsigned long long)o;
+  if (addr % 16 != 0) return false;
+  for (int i = 0; i < 12; ++i)
+    if (st[i] % 8 != 0 || (i < 9 && st[i] <= 0)) return false;
+  return true;
+}
+
+cudaError_t dispatch_wgmma(int hd, int bm, int bn, const void* q, const void* k, const void* v,
+                           void* o, int B, int Tq, int Tk, int KV, int G, const long long* st,
+                           int causal, int window, float logit_cap, int q_offset, float scale,
+                           cudaStream_t s) {
+#define FLASH_WGMMA(HD_, BM_, BN_)                                                            \
+  if (hd == HD_ && bm == BM_ && bn == BN_)                                                    \
+    return launch_wgmma<HD_, BM_, BN_>(q, k, v, o, B, Tq, Tk, KV, G, st, causal, window,      \
+                                       logit_cap, q_offset, scale, s);
+  FLASH_WGMMA(64, 64, 64)
+  FLASH_WGMMA(64, 64, 128)
+  FLASH_WGMMA(64, 128, 64)
+  FLASH_WGMMA(64, 128, 128)
+  FLASH_WGMMA(128, 64, 64)
+  FLASH_WGMMA(128, 64, 128)
+  FLASH_WGMMA(128, 128, 64)
+  FLASH_WGMMA(128, 128, 128)
+#undef FLASH_WGMMA
+  return cudaErrorInvalidValue;              // a tile the body lacks
 }
 
 template <typename T, int DPL>
@@ -413,32 +976,65 @@ cudaError_t dispatch(int dpl, const void* q, const void* k, const void* v, void*
 
 extern "C" {
 
-// q, o: (B, Tq, H, hd); k, v: (B, Tk, KV, hd), H = KV * G <= 64 * KV, last dim
+// q, o: (B, Tq, H, hd); k, v: (B, Tk, KV, hd), H = KV * G, last dim
 // contiguous.
 // strides: q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh
 // (elements).  dtype 0 = float32, 1 = bfloat16.  window <= 0 and
-// logit_cap <= 0 mean none.  bf16 with head_dim a multiple of 16 up to 128
-// and 16-byte aligned operands runs on the tensor cores, the rest on the
-// CUDA cores.  Returns cudaGetLastError() after the launch.
+// logit_cap <= 0 mean none.  block_q / block_k: the Hopper body's tile (64
+// or 128 each); the other bodies have one tile, 64 / G query positions by
+// 64 keys (G <= 64).  0 takes the body's default.  tuned: bit 0 / bit 1 set
+// where block_q / block_k came from the autotune cache, which holds the
+// Hopper body's tile: the other bodies take their own there.  *body is set
+// to the body launched: 0 CUDA cores, 1 mma.sync, 2 wgmma.  Returns
+// cudaGetLastError() after the launch, or an error without launching for a
+// tile or an input no body takes.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int dtype,
                         int B, int Tq, int Tk, int KV, int G, int hd,
                         const long long* strides, int causal, int window, float logit_cap,
-                        int q_offset, float scale, void* stream) {
-  if (G > MAX_ROWS || hd % 8 != 0 || hd > 256) return (int)cudaErrorInvalidValue;
-  int block_q = MAX_ROWS / G;                  // query positions per block
-  if (block_q > Tq) block_q = Tq;
-  if (block_q < 1) block_q = 1;
+                        int q_offset, float scale, int block_q, int block_k, int tuned,
+                        int* body, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (mma_ok(dtype, hd, q, k, v, o, strides))
-    return (int)dispatch_mma(q, k, v, o, B, Tq, Tk, KV, G, hd, strides, block_q, causal,
-                             window, logit_cap, q_offset, scale, s);
+  if (wgmma_ok(dtype, hd, Tq, Tk, q, k, v, o, strides)) {
+    *body = 2;
+    return (int)dispatch_wgmma(hd, block_q ? block_q : WG_BM, block_k ? block_k : WG_BN, q, k,
+                               v, o, B, Tq, Tk, KV, G, strides, causal, window, logit_cap,
+                               q_offset, scale, s);
+  }
+  if (tuned & 1) block_q = 0;
+  if (tuned & 2) block_k = 0;
+  if (G > MAX_ROWS || hd % 8 != 0 || hd > 256) return (int)cudaErrorInvalidValue;
+  if ((block_q && block_q != MAX_ROWS / G) || (block_k && block_k != attn::BK))
+    return (int)cudaErrorInvalidValue;
+  int bq = MAX_ROWS / G;                       // query positions per block
+  if (bq > Tq) bq = Tq;
+  if (bq < 1) bq = 1;
+  if (mma_ok(dtype, hd, q, k, v, o, strides)) {
+    *body = 1;
+    return (int)dispatch_mma(q, k, v, o, B, Tq, Tk, KV, G, hd, strides, bq, causal, window,
+                             logit_cap, q_offset, scale, s);
+  }
+  *body = 0;
   const int dpl = hd <= 32 ? 1 : hd <= 64 ? 2 : hd <= 128 ? 4 : 8;
   cudaError_t err = dtype == 0
-      ? dispatch<float>(dpl, q, k, v, o, B, Tq, Tk, KV, G, hd, strides, block_q, causal,
+      ? dispatch<float>(dpl, q, k, v, o, B, Tq, Tk, KV, G, hd, strides, bq, causal,
                         window, logit_cap, q_offset, scale, s)
-      : dispatch<__nv_bfloat16>(dpl, q, k, v, o, B, Tq, Tk, KV, G, hd, strides, block_q,
+      : dispatch<__nv_bfloat16>(dpl, q, k, v, o, B, Tq, Tk, KV, G, hd, strides, bq,
                                 causal, window, logit_cap, q_offset, scale, s);
   return (int)err;
+}
+
+// The Hopper body's constants, for the launcher to hold its own copies
+// against: tiles[2] (BM and BN each), default_tile[2] (BM, BN), *stages, and
+// smem[8], the shared memory of a block at [head_dim 64, 128][BM][BN].
+void flash_wgmma_config(int* tiles, int* default_tile, int* stages, int* smem) {
+  for (int i = 0; i < 2; ++i) tiles[i] = WG_TILES[i];
+  default_tile[0] = WG_BM;
+  default_tile[1] = WG_BN;
+  *stages = WG_STAGES;
+  for (int h = 0; h < 2; ++h)
+    for (int i = 0; i < 2; ++i)
+      for (int j = 0; j < 2; ++j)
+        smem[4 * h + 2 * i + j] = wgmma_smem_bytes(64 * (h + 1), WG_TILES[i], WG_TILES[j]);
 }
 
 }  // extern "C"

@@ -2,7 +2,18 @@
 
 A CPU tensor goes to the plain version (``ref.attention_ref``); a CUDA
 tensor launches the Hopper kernel.  Anything the kernel does not take
-(dtype, head_dim, layout, group size, device) raises; nothing falls back.
+(dtype, head_dim, layout, group size, device, tile) raises; nothing falls
+back.
+
+Tiles: explicit ``block_q`` / ``block_k`` keywords win; on a CUDA tensor,
+those left None come from the autotune cache (``repro_torch.perf.
+autotune``) for this shape class, dtype and card, and else from the body's
+default, as the reference's wrapper does.  The wgmma body (bf16, head_dim
+64 or 128) takes 64 or 128 for each; the other bodies one tile,
+``fixed_tile(G)``.  An explicit tile the kernel lacks raises before any
+launch.  A tuned tile is the wgmma body's: a call of a tuned class that
+another body takes (a view off the 16-byte rule) runs at that body's own
+tile.
 """
 
 from __future__ import annotations
@@ -13,6 +24,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention as _kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.perf import autotune
 
 
 def _check(q, k, v) -> None:
@@ -35,6 +47,36 @@ def _check(q, k, v) -> None:
         raise ValueError("flash_attention: tensors on different devices")
 
 
+def check_tile(block_q: Optional[int], block_k: Optional[int],
+               G: int) -> None:
+    """Raise unless the tile (a side left None is free) is one some body of
+    the kernel has: the wgmma body's 64 or 128 each, or the other bodies'
+    ``fixed_tile(G)``."""
+    tile = (block_q, block_k)
+    wgmma = all(x is None or x in _kernel.TILES for x in tile)
+    fixed = all(x is None or x == f
+                for x, f in zip(tile, _kernel.fixed_tile(G)))
+    if not (wgmma or fixed):
+        raise ValueError(
+            f"flash_attention: tile {block_q} x {block_k} (block_q and "
+            f"block_k 64 or 128, or {_kernel.fixed_tile(G)} at G {G})")
+
+
+def _resolve_tile(block_q, block_k, q, k, causal: bool) -> tuple:
+    """Explicit, else the tuned tile for the class, else None (the body's
+    default)."""
+    if block_q is None or block_k is None:
+        B, Tq, H, hd = q.shape
+        KV = k.shape[2]
+        cfg = autotune.lookup("flash_attention", q.dtype, device=q.device,
+                              BKV=B * KV, G=H // KV, hd=hd, Tq=Tq,
+                              Tk=k.shape[1], causal=causal)
+        if cfg:
+            block_q = cfg["block_q"] if block_q is None else block_q
+            block_k = cfg["block_k"] if block_k is None else block_k
+    return block_q, block_k
+
+
 def flash_attention(
     q: torch.Tensor,             # (B, Tq, H, hd)
     k: torch.Tensor,             # (B, Tk, KV, hd)
@@ -44,12 +86,20 @@ def flash_attention(
     window: Optional[int] = None,
     logit_cap: Optional[float] = None,
     q_offset: int = 0,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
 ) -> torch.Tensor:
     _check(q, k, v)
+    G = q.shape[2] // k.shape[2]
+    check_tile(block_q, block_k, G)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              logit_cap=logit_cap, q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    tuned = (block_q is None) | (block_k is None) << 1   # sides the cache fills
+    block_q, block_k = _resolve_tile(block_q, block_k, q, k, causal)
     return _kernel.flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                       logit_cap=logit_cap, q_offset=q_offset)
+                                       logit_cap=logit_cap, q_offset=q_offset,
+                                       block_q=block_q, block_k=block_k,
+                                       tuned=tuned)

@@ -98,9 +98,9 @@ def flash_attention(
     PV product.  On the CPU, block sizes left None defer to the autotune
     cache for this shape class and dtype; explicit ones win, and an empty
     cache gives ``DEFAULT_BLOCK_Q`` / ``DEFAULT_BLOCK_K``.  On a card the
-    cache's flash entry is the flash kernel's fixed tile, never timed for
-    this function, so there the defaults always apply: the plain version
-    the kernels are held against does not move with the cache."""
+    cache's flash entry is the flash kernel's tile, never timed for this
+    function, so there the defaults always apply: the plain version the
+    kernels are held against does not move with the cache."""
     B, Tq, H, hd = q.shape
     _, Tk, KV, _ = k.shape
     assert H % KV == 0, (H, KV)

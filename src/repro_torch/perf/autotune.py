@@ -12,19 +12,25 @@ neighbourhood of shapes).  The knobs are the Hopper kernels':
   * ``decode_attention``: the split-K kernel's ``split_len``, 64 to 1024
     keys up to S, plus ``split_plan``'s choice for the class, the default;
   * ``ssd_scan``: the SSD-scan kernel's ``chunk``, 32 to 256 dividing T;
-  * ``flash_attention``: the flash kernel's tiles are compile-time
-    constants, so on the card its class has one candidate and ``tune``
-    only records its time.  On the CPU the candidates are the block sizes
-    of the plain blockwise flash (``models.layers.flash_attention``), the
-    reference's list; only there does the plain flash read them.
+  * ``flash_attention``: on the card, the (``block_q``, ``block_k``) tile
+    of the flash kernel's wgmma body, 64 or 128 each, for the bf16 classes
+    at head_dim 64 and 128 that body takes; every other class reaches a
+    body with one tile (``fixed_tile``: 64 rows of query positions times
+    the GQA group, by 64 keys), so it has one candidate and ``tune`` only
+    records its time.  On the CPU the candidates are the block sizes of the
+    plain blockwise flash (``models.layers.flash_attention``), the
+    reference's list; only there does the plain flash read them.  A
+    tuned tile is the wgmma body's alone: a call of the class that another
+    body takes (a view off the 16-byte rule) runs at that body's tile.
 
 A candidate is priced at max(FLOPs / peak, bytes / memory rate) over the
 card's constants (``perf.roofline``), divided by the share of the 132 SMs
 its grid fills; one whose shared memory exceeds a block's 227 KB is
 dropped, and the default always survives.  The survivors are timed: one
 warm-up call (where a kernel is first built, so no build is timed), then
-the median of ``iters`` runs, each between two CUDA events on the card or
-on the host clock on the CPU.
+the median of ``iters`` runs.  On the card a run replays ``GRAPH_CALLS``
+calls captured in a CUDA graph between two CUDA events, so only the
+device's time counts; on the CPU a run is one call on the host clock.
 
 The backend key is ``torch-cpu`` or ``torch-cuda:<device name>``, so an
 entry never crosses between the CPU and a card, and never collides with
@@ -56,6 +62,7 @@ from repro_torch import resolve_device
 from repro_torch.kernels.decode_attention import decode_attention as _k2
 from repro_torch.kernels.decode_attention import \
     paged_decode_attention as _k3
+from repro_torch.kernels.flash_attention import flash_attention as _k1
 from repro_torch.perf import profile_store
 from repro_torch.perf.roofline import (BF16_FLOPS, F32_FLOPS, HBM_BPS,
                                        NUM_SMS, SMEM_PER_BLOCK)
@@ -63,12 +70,13 @@ from repro_torch.perf.roofline import (BF16_FLOPS, F32_FLOPS, HBM_BPS,
 PRUNE_RATIO = 3.0               # keep candidates within this factor of the
                                 # best modeled bound time
 _BK = 64                        # keys per shared-memory tile (attention)
-_K1_ROWS = 64                   # query rows per flash-kernel block
 
 # The wrappers' defaults on an empty cache, always kept in the candidate
 # set so that tuning can only improve on them.  ``split_len: None`` is
 # ``split_plan``'s choice for the shape; on the card the flash kernel's
-# default is its fixed tile (``_default``).
+# default is its wgmma body's default tile, or the one tile of the body a
+# class reaches (``_default``); the flash entry here is the plain
+# blockwise flash's, on the CPU.
 DEFAULTS = {
     "flash_attention": {"block_q": 128, "block_k": 128},
     "decode_attention": {"split_len": None},
@@ -202,11 +210,20 @@ def _key(kernel: str, backend: str, dtype: str, cls: dict) -> str:
 # flash kernel's bf16 body on the tensor cores.
 # ---------------------------------------------------------------------------
 def _k1_tile(G: int) -> dict:
-    return {"block_q": max(_K1_ROWS // G, 1), "block_k": _BK}
+    """The one tile of the flash kernel's mma_sync and CUDA-core bodies."""
+    return dict(zip(("block_q", "block_k"), _k1.fixed_tile(G)))
 
 
-def _default(kernel: str, cls: dict, on_card: bool) -> dict:
+def _k1_wgmma(cls: dict, dtype: str, on_card: bool) -> bool:
+    """Whether the class reaches the flash kernel's wgmma body."""
+    return on_card and _k1.wgmma_class(dtype, cls["hd"])
+
+
+def _default(kernel: str, cls: dict, on_card: bool,
+             dtype: str = "float32") -> dict:
     if kernel == "flash_attention" and on_card:
+        if _k1_wgmma(cls, dtype, on_card):
+            return dict(zip(("block_q", "block_k"), _k1.DEFAULT_TILE))
         return _k1_tile(cls["G"])
     if kernel == "decode_attention":
         return {"split_len": _k2.split_plan(cls["BKV"], cls["S"])[0]}
@@ -224,7 +241,11 @@ def _decode_smem(G: int, hd: int) -> int:
     return 4 * (2 * G * hd + 2 * G + _BK * (hd + 1) + _BK * hd + 4 * _BK)
 
 
-def _flash_candidates(cls: dict, on_card: bool) -> list:
+def _flash_candidates(cls: dict, on_card: bool,
+                      dtype: str = "float32") -> list:
+    if _k1_wgmma(cls, dtype, on_card):
+        return [{"block_q": bq, "block_k": bk}
+                for bq in _k1.TILES for bk in _k1.TILES]
     if on_card:
         return [_k1_tile(cls["G"])]
     out = []
@@ -235,7 +256,8 @@ def _flash_candidates(cls: dict, on_card: bool) -> list:
     return out or [dict(DEFAULTS["flash_attention"])]
 
 
-def _flash_model(cls: dict, cand: dict, sz: int) -> tuple:
+def _flash_model(cls: dict, cand: dict, sz: int,
+                 on_card: bool = True) -> tuple:
     BKV, G, hd, Tq, Tk = (cls["BKV"], cls["G"], cls["hd"], cls["Tq"],
                           cls["Tk"])
     bq, bk = cand["block_q"], cand["block_k"]
@@ -244,18 +266,24 @@ def _flash_model(cls: dict, cand: dict, sz: int) -> tuple:
     nbytes = BKV * sz * (2 * G * Tq * hd + 2 * Tk * hd * nq)
     flops = 4.0 * BKV * G * Tq * Tk * hd * (0.5 if cls["causal"] else 1.0)
     peak = BF16_FLOPS if sz == 2 else F32_FLOPS
+    if _k1_wgmma(cls, "bfloat16" if sz == 2 else "float32", on_card):
+        # one block per (query tile, head)
+        return (_bound(flops, peak, nbytes, BKV * G * nq),
+                _k1.wgmma_smem(hd, bq, bk))
     smem = 4 * (G * bq * hd + bk * (hd + 1) + bk * hd)
     return _bound(flops, peak, nbytes, BKV * nq), smem
 
 
-def _decode_candidates(cls: dict, on_card: bool) -> list:
+def _decode_candidates(cls: dict, on_card: bool,
+                       dtype: str = "float32") -> list:
     out = [{"split_len": n} for n in (64, 128, 256, 512, 1024)
            if n <= cls["S"]]
     default = _default("decode_attention", cls, on_card)
     return out + ([default] if default not in out else [])
 
 
-def _decode_model(cls: dict, cand: dict, sz: int) -> tuple:
+def _decode_model(cls: dict, cand: dict, sz: int,
+                  on_card: bool = True) -> tuple:
     BKV, G, hd, S = cls["BKV"], cls["G"], cls["hd"], cls["S"]
     ns = math.ceil(S / cand["split_len"])
     # the cache, q and o once; the float32 partials written and read once
@@ -264,12 +292,14 @@ def _decode_model(cls: dict, cand: dict, sz: int) -> tuple:
     return _bound(flops, F32_FLOPS, nbytes, BKV * ns), _decode_smem(G, hd)
 
 
-def _paged_candidates(cls: dict, on_card: bool) -> list:
+def _paged_candidates(cls: dict, on_card: bool,
+                      dtype: str = "float32") -> list:
     out = [{"page_size": p} for p in (32, 64, 128, 256) if p <= cls["S"]]
     return out or [dict(DEFAULTS["paged_decode_attention"])]
 
 
-def _paged_model(cls: dict, cand: dict, sz: int) -> tuple:
+def _paged_model(cls: dict, cand: dict, sz: int,
+                 on_card: bool = True) -> tuple:
     BKV, G, hd, S = cls["BKV"], cls["G"], cls["hd"], cls["S"]
     psz = cand["page_size"]
     ns = max(S // psz, 1)
@@ -283,13 +313,15 @@ def _paged_model(cls: dict, cand: dict, sz: int) -> tuple:
             16 * _BK + _decode_smem(G, hd))
 
 
-def _ssd_candidates(cls: dict, on_card: bool) -> list:
+def _ssd_candidates(cls: dict, on_card: bool,
+                    dtype: str = "float32") -> list:
     out = [{"chunk": c} for c in (32, 64, 128, 256)
            if c <= cls["T"] and cls["T"] % c == 0]
     return out or [dict(DEFAULTS["ssd_scan"])]
 
 
-def _ssd_model(cls: dict, cand: dict, sz: int) -> tuple:
+def _ssd_model(cls: dict, cand: dict, sz: int,
+               on_card: bool = True) -> tuple:
     H, P, N, T = cls["H"], cls["P"], cls["N"], cls["T"]
     c = cand["chunk"]
     # intra-chunk terms are quadratic in the chunk, the state terms are not
@@ -317,13 +349,14 @@ def prune_candidates(kernel: str, cls: dict, dtype: str,
     ever remove challengers, never the fallback."""
     on_card = _on_card(device)
     cands_fn, model_fn = _KERNELS[kernel]
-    cands = cands_fn(cls, on_card)
-    sz = _itemsize(_dtype_name(dtype))
-    scored = [(cand, *model_fn(cls, cand, sz)) for cand in cands]
+    dtype = _dtype_name(dtype)
+    cands = cands_fn(cls, on_card, dtype)
+    sz = _itemsize(dtype)
+    scored = [(cand, *model_fn(cls, cand, sz, on_card)) for cand in cands]
     feasible = [s for s in scored if s[2] <= SMEM_PER_BLOCK] or scored
     best = min(b for _, b, _ in feasible)
     kept = [c for c, b, _ in feasible if b <= ratio * best]
-    default = _default(kernel, cls, on_card)
+    default = _default(kernel, cls, on_card, dtype)
     if all(c != default for c in kept) and default in cands:
         kept.append(default)
     return kept
@@ -333,22 +366,35 @@ def prune_candidates(kernel: str, cls: dict, dtype: str,
 # Timing: the public wrappers, so the card runs the kernels and the CPU
 # their plain versions.
 # ---------------------------------------------------------------------------
+GRAPH_CALLS = 10                # calls captured in the graph a run replays
+
+
 def _time_call(fn: Callable, device: torch.device, iters: int = 3) -> float:
     """Seconds per call: one warm-up call, then the median of ``iters``
-    timed runs, so one spike does not decide."""
+    timed runs, so one spike does not decide.  On the card a run is one
+    replay, between two CUDA events, of ``GRAPH_CALLS`` calls captured once
+    in a CUDA graph: the device's time alone, not the wrapper's host work,
+    which at small shapes takes longer than the kernel and would decide
+    between candidates that differ only on the device.  A call that cannot
+    be captured raises.  On the CPU a run is one call on the host clock."""
     fn()
     times = []
     if device.type == "cuda":
         with torch.cuda.device(device):
             torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(GRAPH_CALLS):
+                    fn()
             for _ in range(iters):
                 a = torch.cuda.Event(enable_timing=True)
                 b = torch.cuda.Event(enable_timing=True)
                 a.record()
-                fn()
+                graph.replay()
                 b.record()
                 b.synchronize()
-                times.append(a.elapsed_time(b) / 1e3)
+                times.append(a.elapsed_time(b) / 1e3 / GRAPH_CALLS)
+            del graph
     else:
         for _ in range(iters):
             t0 = time.perf_counter()
@@ -364,16 +410,25 @@ def _randn(gen, shape, device, dtype=torch.float32, scale=1.0):
             * scale).to(dtype)
 
 
-def _flash_bench(cls: dict, dtype, cand: dict, device) -> Callable:
-    B = cls["BKV"]                  # folded batch * kv heads
+def flash_inputs(cls: dict, dtype, device) -> tuple:
+    """(q, k, v) on which the flash kernel is timed for ``cls``: the batch
+    and the kv heads folded into one batch of BKV."""
+    B = cls["BKV"]
     G, hd, Tq, Tk = cls["G"], cls["hd"], cls["Tq"], cls["Tk"]
     gen = torch.Generator(device=device).manual_seed(0)
     q = _randn(gen, (B, Tq, G, hd), device, dtype)
     k = _randn(gen, (B, Tk, 1, hd), device, dtype)
     v = _randn(gen, (B, Tk, 1, hd), device, dtype)
+    return q, k, v
+
+
+def _flash_bench(cls: dict, dtype, cand: dict, device) -> Callable:
+    q, k, v = flash_inputs(cls, dtype, device)
     if device.type == "cuda":
         from repro_torch.kernels.flash_attention.ops import flash_attention
-        return lambda: flash_attention(q, k, v, causal=cls["causal"])
+        return lambda: flash_attention(q, k, v, causal=cls["causal"],
+                                       block_q=cand["block_q"],
+                                       block_k=cand["block_k"])
     from repro_torch.models.layers import flash_attention as plain_flash
     return lambda: plain_flash(q, k, v, causal=cls["causal"],
                                block_q=cand["block_q"],
@@ -475,7 +530,7 @@ def tune(kernel: str, dtype="float32", *, device=None, force: bool = False,
     _state["tunes"] += 1
     on_card = dev.type == "cuda"
     cands = (prune_candidates(kernel, cls, dtype, device=dev) if prune
-             else _KERNELS[kernel][0](cls, on_card))
+             else _KERNELS[kernel][0](cls, on_card, dtype))
     tdtype = getattr(torch, dtype)
     best, best_t, timed = None, float("inf"), {}
     for cand in cands:
@@ -484,7 +539,7 @@ def tune(kernel: str, dtype="float32", *, device=None, force: bool = False,
         timed[json.dumps(cand, sort_keys=True)] = t * 1e6
         if t < best_t:
             best, best_t = cand, t
-    default = _default(kernel, cls, on_card)
+    default = _default(kernel, cls, on_card, dtype)
     entry = {
         "config": dict(best),
         "us_per_call": best_t * 1e6,

@@ -102,7 +102,10 @@ def test_hopper_candidates_and_defaults():
     flash = autotune.shape_class("flash_attention", BKV=40, G=3, hd=64,
                                  Tq=512, Tk=512, causal=True)
     assert autotune._flash_candidates(flash, True) == \
-        [{"block_q": 21, "block_k": 64}]             # the kernel's fixed tile
+        [{"block_q": 21, "block_k": 64}]   # float32: the CUDA-core body's tile
+    assert autotune._flash_candidates(flash, True, "bfloat16") == [
+        {"block_q": bq, "block_k": bk}
+        for bq in (64, 128) for bk in (64, 128)]     # the wgmma body's tiles
     assert len(autotune._flash_candidates(flash, False)) == 16
     paged = autotune.shape_class("paged_decode_attention", BKV=8, G=4,
                                  hd=64, S=100)
@@ -117,6 +120,60 @@ def test_hopper_candidates_and_defaults():
         for cand in autotune._KERNELS[kernel][0](cls, True):
             _, smem = autotune._KERNELS[kernel][1](cls, cand, 2)
             assert smem <= SMEM_PER_BLOCK == 232_448
+
+
+# (dtype, hd): the flash classes whose on-card candidates are the wgmma
+# body's four tiles, and classes that reach a body with one tile
+WGMMA_FLASH = [("bfloat16", 64), ("bfloat16", 128)]
+FIXED_FLASH = [("float32", 64), ("float32", 128), ("bfloat16", 32),
+               ("bfloat16", 96), ("bfloat16", 256)]
+
+
+@pytest.mark.parametrize("dtype,hd", WGMMA_FLASH + FIXED_FLASH, ids=str)
+@pytest.mark.parametrize("G", [1, 3, 8])
+def test_flash_card_candidates_and_their_shared_memory(dtype, hd, G):
+    """On the card the bf16 classes at head_dim 64 and 128 offer the wgmma
+    body's four tiles, priced at its shared memory (the Q tile and two K/V
+    stages in bf16, 1 KB of alignment slack, five mbarriers), every one
+    under a block's 227 KB, with the default (64 x 64) among them and kept
+    by pruning; every other class has the one tile of the body it
+    reaches."""
+    cls = autotune.shape_class("flash_attention", BKV=40, G=G, hd=hd,
+                               Tq=512, Tk=512, causal=True)
+    cands = autotune._flash_candidates(cls, True, dtype)
+    default = autotune._default("flash_attention", cls, True, dtype)
+    kept = autotune.prune_candidates("flash_attention", cls, dtype,
+                                     device="cuda")
+    if (dtype, hd) in WGMMA_FLASH:
+        assert cands == [{"block_q": bq, "block_k": bk}
+                         for bq in (64, 128) for bk in (64, 128)]
+        assert default == {"block_q": 64, "block_k": 64}
+        for cand in cands:
+            _, smem = autotune._flash_model(cls, cand, 2, True)
+            assert smem == 2 * hd * (cand["block_q"] + 4 * cand["block_k"]) \
+                + 1024 + 40
+            assert smem <= SMEM_PER_BLOCK == 232_448
+    else:
+        assert cands == [default] == [{"block_q": max(64 // G, 1),
+                                       "block_k": 64}]
+    assert default in kept and all(c in cands for c in kept)
+
+
+def test_flash_wrapper_resolves_the_tile(tuner):
+    """Explicit keywords win; a side left None comes from the autotune
+    cache for the class, else from the body's default (None)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    q, k = _randn(0, 1, 128, 2, 32), _randn(1, 1, 128, 1, 32)
+    assert flash_ops._resolve_tile(None, None, q, k, True) == (None, None)
+    assert flash_ops._resolve_tile(64, 128, q, k, True) == (64, 128)
+    kernel, dims = SEEDED[0]
+    cfg = tuner.tune(kernel, "float32", device="cpu", iters=1, **dims)[
+        "config"]
+    assert flash_ops._resolve_tile(None, None, q, k, True) == \
+        (cfg["block_q"], cfg["block_k"])
+    assert flash_ops._resolve_tile(64, None, q, k, True) == \
+        (64, cfg["block_k"])
+    assert flash_ops._resolve_tile(None, None, q, k, False) == (None, None)
 
 
 def test_empty_cache_gives_todays_defaults(tuner):

@@ -1,9 +1,11 @@
 """The CUDA kernels against their plain PyTorch versions on the GPU, over
 the reference's case lists: attention (flash, split-K decode, paged
-decode) at 2e-5 in float32 and 2e-2 in bfloat16; the SSD scan at the
-reference's 2e-3, with float32 or bfloat16 B/C, over its case list and the
-Mamba2 and Zamba2 serving shapes.  The autotuner on the card times the
-paged kernel at every page size.
+decode) at 2e-5 in float32 and 2e-2 in bfloat16, the flash kernel's wgmma
+body also over its own cases, each asserting which body ran; the SSD scan
+at the reference's 2e-3, with float32 or bfloat16 B/C, over its case list
+and the Mamba2 and Zamba2 serving shapes.  The autotuner on the card times
+the flash kernel at each wgmma tile and the paged kernel at every page
+size.
 
 Marked ``cuda``: each test skips without a GPU.  This file imports no JAX,
 so it runs on a machine that has only PyTorch and the CUDA toolkit:
@@ -22,6 +24,8 @@ from repro_torch.kernels.decode_attention import \
     paged_decode_attention as paged_kernel
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, paged_decode_attention_ref)
+from repro_torch.kernels.flash_attention import \
+    flash_attention as flash_kernel
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -100,6 +104,170 @@ def test_flash_kernel_matches_plain(gpu, case, dtype):
     tol = DTYPES[dtype][1]
     torch.testing.assert_close(out.float(), attention_ref(q, k, v, **kw).float(),
                                atol=tol, rtol=tol)
+
+
+# cases of the flash kernel's wgmma body (bf16, head_dim 64 and 128):
+# (B, Tq, Tk, H, KV, hd, causal, window, cap, q_offset, block_q, block_k)
+WGMMA_CASES = (
+    # each tile, at hd 64 (G 4) and with window and cap at hd 128 (G 8)
+    [(2, 256, 256, 8, 2, 64, True, None, None, 0, bq, bk)
+     for bq in (64, 128) for bk in (64, 128)]
+    + [(1, 256, 256, 8, 1, 128, True, 100, 30.0, 0, bq, bk)
+       for bq in (64, 128) for bk in (64, 128)]
+    + [(2, 200, 200, 6, 6, 64, True, None, None, 0, 128, 64),     # Tq 200, G 1
+       (3, 384, 384, 15, 5, 128, True, None, None, 0, 128, 128),  # Tq 384, G 3
+       (2, 100, 300, 8, 8, 64, True, None, None, 200, 64, 128),   # Tk > Tq
+       (2, 130, 400, 16, 2, 128, True, None, 50.0, 270, 128, 64),
+       (2, 200, 200, 6, 2, 64, False, None, None, 0, 64, 64),     # bidirectional
+       (2, 384, 384, 6, 2, 64, True, 64, None, 0, None, None)])   # default tile
+
+
+def _bodies_run(fn):
+    """The flash bodies ``fn`` launched, by ``LAUNCHES_BY_BODY``."""
+    before = dict(flash_kernel.LAUNCHES_BY_BODY)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {n: c - before[n] for n, c in
+                 flash_kernel.LAUNCHES_BY_BODY.items() if c != before[n]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WGMMA_CASES, ids=str)
+def test_flash_wgmma_body_matches_plain(gpu, case):
+    """q and k at scale 2, so the softmax is peaked and a masking or layout
+    error shows at 2e-2."""
+    B, Tq, Tk, H, KV, hd, causal, window, cap, q_offset, bq, bk = case
+    q, k, v = _inputs(4, [(B, Tq, H, hd), (B, Tk, KV, hd), (B, Tk, KV, hd)],
+                      "bfloat16", gpu)
+    q, k = q * 4, k * 4
+    kw = dict(causal=causal, window=window, logit_cap=cap, q_offset=q_offset)
+    out, ran = _bodies_run(lambda: flash_ops.flash_attention(
+        q, k, v, block_q=bq, block_k=bk, **kw))
+    assert ran == {"wgmma": 1}
+    torch.testing.assert_close(out.float(),
+                               attention_ref(q, k, v, **kw).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("broken", ["pointer", "strides"])
+def test_flash_view_off_the_16_byte_rule_takes_the_cuda_core_body(gpu,
+                                                                   broken):
+    """A bf16 view at head_dim 64 whose pointers sit 8 bytes off a 16-byte
+    boundary, or whose strides are not multiples of 16 bytes, is read by
+    neither TMA nor the mma.sync body's 16-byte loads."""
+    B, T, H, KV, hd = 2, 200, 6, 2, 64
+    pad = 8 if broken == "pointer" else 4
+    q, k, v = _inputs(5, [(B, T, H, hd + pad), (B, T, KV, hd + pad),
+                          (B, T, KV, hd + pad)], "bfloat16", gpu)
+    lo = 4 if broken == "pointer" else 0
+    q, k, v = (x[..., lo:lo + hd] for x in (q, k, v))
+    out, ran = _bodies_run(lambda: flash_ops.flash_attention(q, k, v))
+    assert ran == {"cuda_cores": 1}
+    torch.testing.assert_close(out.float(),
+                               attention_ref(q, k, v).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tile,error", [
+    ("bfloat16", (32, 64), ValueError),      # no body has it
+    ("bfloat16", (21, 64), RuntimeError),    # the wgmma body lacks it
+    ("float32", (128, 128), RuntimeError),   # the CUDA-core body lacks it
+], ids=str)
+def test_flash_tile_the_body_lacks_raises_without_a_launch(gpu, dtype, tile,
+                                                           error):
+    q, k, v = _inputs(6, [(1, 64, 6, 64), (1, 64, 2, 64), (1, 64, 2, 64)],
+                      dtype, gpu)
+    before = flash_kernel.LAUNCHES
+    with pytest.raises(error, match="tile"):
+        flash_ops.flash_attention(q, k, v, block_q=tile[0], block_k=tile[1])
+    assert flash_kernel.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_tune_flash_times_each_wgmma_tile_through_the_kernel(gpu, tmp_path):
+    prev = autotune._state["cache_dir"]
+    autotune.configure(cache_dir=str(tmp_path))
+    try:
+        dims = dict(BKV=4, G=3, hd=64, Tq=256, Tk=256, causal=True)
+        before = flash_kernel.LAUNCHES_BY_BODY["wgmma"]
+        e = autotune.tune("flash_attention", "bfloat16", device=gpu, **dims)
+        torch.cuda.synchronize()
+        assert sorted(json.loads(c)["block_q"] * 1000 + json.loads(c)["block_k"]
+                      for c in e["candidates_timed"]) == \
+            [64064, 64128, 128064, 128128]
+        assert flash_kernel.LAUNCHES_BY_BODY["wgmma"] - before == \
+            4 * (1 + autotune.GRAPH_CALLS)
+        q, k = _inputs(7, [(4, 256, 3, 64), (4, 256, 1, 64)], "bfloat16", gpu)
+        assert flash_ops._resolve_tile(None, None, q, k, True) == \
+            (e["config"]["block_q"], e["config"]["block_k"])
+    finally:
+        autotune._state["cache_dir"] = prev
+        autotune.configure(tune_on_miss=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(64, 64), (64, 128), (128, 64), (128, 128)],
+                         ids=str)
+def test_flash_kernel_matches_plain_at_the_tuned_class(gpu, tile):
+    """The inputs the autotuner times K1 on for SmolLM-360M's batch-8
+    prefill class (BKV 64, G 3, hd 64, T 512, causal), in bfloat16, at each
+    tile it times."""
+    cls = autotune.shape_class("flash_attention", BKV=40, G=3, hd=64,
+                               Tq=512, Tk=512, causal=True)
+    q, k, v = autotune.flash_inputs(cls, torch.bfloat16, gpu)
+    out, ran = _bodies_run(lambda: flash_ops.flash_attention(
+        q, k, v, causal=True, block_q=tile[0], block_k=tile[1]))
+    assert ran == {"wgmma": 1}
+    torch.testing.assert_close(out.float(),
+                               attention_ref(q, k, v, causal=True).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(128, 64), (64, 128), (128, 128)], ids=str)
+def test_flash_tuned_tile_reaches_the_wgmma_body_only(gpu, tmp_path, tile):
+    """A tuned wgmma tile is taken by the aligned calls of its class; a view
+    of the same class off the 16-byte rule runs the CUDA-core body at its
+    own tile instead of raising."""
+    prev = autotune._state["cache_dir"]
+    autotune.configure(cache_dir=str(tmp_path))
+    try:
+        B, T, H, KV, hd = 2, 256, 6, 2, 64
+        dims = dict(BKV=B * KV, G=H // KV, hd=hd, Tq=T, Tk=T, causal=True)
+        cls = autotune.shape_class("flash_attention", **dims)
+        key = autotune._key("flash_attention", autotune.backend_key(gpu),
+                            "bfloat16", cls)
+        autotune._load()[key] = {"config": {"block_q": tile[0],
+                                            "block_k": tile[1]}}
+        autotune.configure()                      # clears the lookup memo
+        q, k, v = _inputs(8, [(B, T, H, hd + 4), (B, T, KV, hd + 4),
+                              (B, T, KV, hd + 4)], "bfloat16", gpu)
+        assert flash_ops._resolve_tile(None, None, q[..., :hd], k[..., :hd],
+                                       True) == tile
+        for lo, body in ((0, "wgmma"), (4, "cuda_cores")):
+            if lo:
+                qv, kv, vv = (x[..., lo:lo + hd] for x in (q, k, v))
+            else:
+                qv, kv, vv = (x[..., :hd].contiguous() for x in (q, k, v))
+            out, ran = _bodies_run(
+                lambda: flash_ops.flash_attention(qv, kv, vv))
+            assert ran == {body: 1}
+            torch.testing.assert_close(out.float(),
+                                       attention_ref(qv, kv, vv).float(),
+                                       atol=2e-2, rtol=2e-2)
+    finally:
+        autotune._state["cache_dir"] = prev
+        autotune.configure(tune_on_miss=False)
+
+
+@pytest.mark.cuda
+def test_flash_launcher_constants_match_the_library(gpu):
+    """The launcher's wgmma tiles, default tile, stages and shared-memory
+    prices are the built library's (``_lib`` raises where they differ)."""
+    lib = flash_kernel._lib()
+    flash_kernel._check_config(lib)
 
 
 @pytest.mark.cuda
@@ -345,7 +513,8 @@ def test_tune_paged_times_every_page_size_through_the_kernel(gpu, tmp_path):
         torch.cuda.synchronize()
         sizes = sorted(json.loads(c)["page_size"] for c in e["candidates_timed"])
         assert sizes == [32, 64, 128, 256]
-        assert paged_kernel.LAUNCHES - before == 4 * (1 + 3)
+        assert paged_kernel.LAUNCHES - before == \
+            4 * (1 + autotune.GRAPH_CALLS)
         assert e["backend"].startswith("torch-cuda:")
         gen = autotune.generation()
         again = autotune.tune("paged_decode_attention", "bfloat16", **dims)

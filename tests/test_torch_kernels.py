@@ -115,3 +115,54 @@ def test_unsupported_inputs_raise(bad):
     kc, vc = k.transpose(1, 2), v.transpose(1, 2)
     with pytest.raises(ValueError):
         dec_ops.decode_attention_kvmajor(q[:, 0].contiguous(), kc, vc, 3)
+
+
+# (block_q, block_k) the wrapper takes at G 3: the wgmma body's tiles, the
+# other bodies' one tile (21 x 64), either side left to the cache or the
+# default; and tiles no body has
+TILES_TAKEN = [(64, 64), (64, 128), (128, 64), (128, 128), (21, 64),
+               (21, None), (None, 128), (None, None)]
+TILES_REFUSED = [(32, 64), (64, 32), (256, 128), (96, None), (None, 21),
+                 (21, 128), (128, 96)]
+
+
+@pytest.mark.parametrize("tile", TILES_TAKEN + TILES_REFUSED, ids=str)
+def test_flash_wrapper_validates_the_tile(tile):
+    """A tile the kernel has is taken (on the CPU the plain version runs,
+    whatever the tile); any other raises before anything runs."""
+    (_, qt), (_, kt), (_, vt) = _inputs(
+        6, [(1, 40, 6, 64), (1, 40, 2, 64), (1, 40, 2, 64)], "bfloat16")
+    call = lambda: flash_ops.flash_attention(  # noqa: E731
+        qt, kt, vt, block_q=tile[0], block_k=tile[1])
+    if tile in TILES_REFUSED:
+        with pytest.raises(ValueError, match="tile"):
+            call()
+    else:
+        assert torch.equal(call(), attention_ref(qt, kt, vt))
+
+
+def test_flash_launcher_constants_match_the_cuda_source():
+    """The wgmma constants the autotuner prices tiles by without a built
+    library (tiles, default tile, stages) are the CUDA source's, and each
+    tile pair is an instance ``dispatch_wgmma`` launches, at head_dim 64
+    and 128.  On the card ``_lib`` holds them against the library too."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels.flash_attention import \
+        flash_attention as flash_kernel
+    src = (Path(flash_kernel.__file__).resolve().parents[1] / "csrc"
+           / "flash_attention.cu").read_text()
+    tiles = re.search(r"WG_TILES\[2\] = \{(\d+), (\d+)\}", src).groups()
+    bm, bn = re.search(r"WG_BM = (\d+), WG_BN = (\d+);", src).groups()
+    stages = re.search(r"WG_STAGES = (\d+);", src).group(1)
+    assert tuple(map(int, tiles)) == flash_kernel.TILES
+    assert (int(bm), int(bn)) == flash_kernel.DEFAULT_TILE
+    assert int(stages) == flash_kernel.STAGES
+    instances = {tuple(map(int, m)) for m in
+                 re.findall(r"FLASH_WGMMA\((\d+), (\d+), (\d+)\)", src)}
+    assert instances == {(hd, bq, bk) for hd in (64, 128)
+                         for bq in flash_kernel.TILES
+                         for bk in flash_kernel.TILES}
+    assert flash_kernel.wgmma_smem(64, 64, 64) == 1024 + 2 * 64 * (
+        64 + 2 * 2 * 64) + 8 * 5
