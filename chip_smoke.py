@@ -10,23 +10,27 @@ stale ``.profile_store/`` in the working directory changes nothing:
   3. kernels: each kernel against its plain PyTorch version over the
      reference case lists and the shapes of the serving paths (attention,
      paged attention included: float32 at 2e-5, bfloat16 at 2e-2; SSD
-     scan: float32 or bfloat16 B/C at 2e-3), the flash kernel also over
-     cases of its wgmma body (each tile, ragged edges, q_offset, window,
-     cap, GQA groups 1-8) and a view that must take its CUDA-core body,
-     each asserting which body ran; then timed beside its plain version,
-     one PyTorch library call where there is one, and its bound.  Each
-     time is taken twice: eager (20 calls between two CUDA events, the
-     wrapper's host work included) and on the device alone (the same 20
-     calls captured once in a CUDA graph and replayed between two events);
+     scan: float32 or bfloat16 x and B/C, x also as a strided slice, at
+     2e-3), the split-K decode kernel also at every split length 64-1024
+     of a 1,024-key cache, the flash kernel also over cases of its wgmma
+     body (each tile, ragged edges, q_offset, window, cap, GQA groups 1-8)
+     and a view that must take its CUDA-core body, each asserting which
+     body ran; then timed beside its plain version, one PyTorch library
+     call where there is one, and its bound (the SSD scan's also beside the
+     float32-CUDA-core bound of its first body).  Each time is taken twice:
+     eager (20 calls between two CUDA events, the wrapper's host work
+     included) and on the device alone (the same 20 calls captured once in
+     a CUDA graph and replayed between two events);
   4. model: full-width SmolLM-360M, Mamba2-1.3B and Zamba2-1.2B (random
      weights from a seed), prefill 8 x 512 and decode steps through the
      kernels, held against the plain path on the card (float32 at 1e-4;
      bf16 at the JAX bounds or twice the plain path's own rounding floor,
      whichever is larger; argmax equal but at near-ties), with the
      kernels' launch counts checked, every bf16 flash launch through the
-     wgmma body, and the time of the flash and SSD-scan kernels inside
-     one bf16 prefill from torch.profiler's trace of the card (kernel time
-     alone, and the device's idle share of the prefill);
+     wgmma body, and from torch.profiler's traces of the card, of one bf16
+     prefill and one bf16 decode step: the flash, decode and SSD-scan
+     kernels' time and count (one decode kernel per attention layer, two
+     SSD-scan kernels per Mamba block), and the device's idle share;
   5. serving: RealExecutor + DNNScaler (hybrid, estimator seeded as
      ``serve`` seeds it) + ServingEngine at full width, SmolLM-360M (flash
      + decode attention) and then Mamba2-1.3B (SSD scan), each with zero
@@ -51,6 +55,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -90,7 +95,7 @@ from repro_torch.models import api, layers  # noqa: E402
 from repro_torch.models.mamba import ssd_chunked  # noqa: E402
 from repro_torch.perf import autotune  # noqa: E402
 from repro_torch.perf.roofline import (BF16_FLOPS, F32_FLOPS,  # noqa: E402
-                                       HBM_BPS)
+                                       HBM_BPS, TF32_FLOPS)
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.executor import tensor_leaves  # noqa: E402
 
@@ -134,6 +139,10 @@ DECODE_CASES = [
     (2, 1024, 48, 1, 64, 700, None, None),
     (1, 256, 32, 4, 128, 0, None, None),
 ]
+# every split length the autotuner offers, on a 1,024-key cache: 64 gives 16
+# splits, a full cluster of the split-K kernel
+SPLIT_CASE = (2, 1024, 8, 2, 64, 1023, None, None)
+SPLIT_LENS = (64, 128, 192, 256, 320, 512, 1024)
 # the reference's kv-major cases (tests/test_paged_attention.py)
 KVMAJOR_CASES = [
     (2, 300, 8, 2, 64, 299, None, None),
@@ -314,9 +323,13 @@ def phase_build() -> None:
     print(f"[build] nvcc sm_90a, four sources in parallel: "
           f"{time.perf_counter() - t0:.1f}s")
     for name, log in build.PTXAS_REPORT.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = [ln.strip() for ln in log.splitlines() if "spill" in ln
+                  and not re.search(r"0 bytes spill stores, 0 bytes spill "
+                                    r"loads", ln)]
+        print(f"[build] {name}: {len(regs)} kernels, registers "
+              f"{min(regs)}-{max(regs)} a thread; "
+              + ("; ".join(spills) if spills else "no spills"))
 
 
 def _flash_body(dtype, hd: int) -> str:
@@ -371,24 +384,25 @@ def _check_tile(q, k, v, tile, what: str) -> float:
     return _maxerr(out, ref)
 
 
-def _check_decode(gen, case, dtype, kvmajor: bool) -> tuple:
+def _check_decode(gen, case, dtype, kvmajor: bool,
+                  split_len=None) -> tuple:
     B, S, H, KV, hd, pos, window, cap = case
     q, k, v = _qkv(gen, (B, H, hd), (B, S, KV, hd), dtype)
     p = torch.tensor([pos], dtype=torch.int32, device=DEV)
+    kw = dict(window=window, logit_cap=cap, split_len=split_len)
     if kvmajor:   # the model's (B, KV, S, hd) layout, contiguous
         out = decode_ops.decode_attention_kvmajor(
             q, k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
-            p, window=window, logit_cap=cap)
+            p, **kw)
     else:
-        out = decode_ops.decode_attention(q, k, v, p, window=window,
-                                          logit_cap=cap)
+        out = decode_ops.decode_attention(q, k, v, p, **kw)
     ref = decode_attention_ref(q, k, v, pos, window=window, logit_cap=cap)
     torch.cuda.synchronize()
     err = _maxerr(out, ref)
     tol = TOL[dtype]
     assert torch.isfinite(out.float()).all(), ("decode", case, dtype)
     assert torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol), \
-        ("decode kernel disagrees", case, dtype, err)
+        ("decode kernel disagrees", case, dtype, split_len, err)
     return err, _relerr(out, ref)
 
 
@@ -411,7 +425,9 @@ def phase_kernels() -> dict:
                                    view=True))
         dc = ([_check_decode(gen, c, dtype, False) for c in DECODE_CASES]
               + [_check_decode(gen, c, dtype, True)
-                 for c in KVMAJOR_CASES + [slice_decode]])
+                 for c in KVMAJOR_CASES + [slice_decode]]
+              + [_check_decode(gen, SPLIT_CASE, dtype, True, sl)
+                 for sl in SPLIT_LENS])
         for name, res in (("flash", fl), ("decode", dc)):
             worst[name][dtype] = (max(e for e, _ in res),
                                   max(r for _, r in res), len(res))
@@ -511,26 +527,30 @@ def phase_kernels() -> dict:
     }
 
 
-def _ssd_inputs(gen, case, bc_dtype) -> tuple:
+def _ssd_inputs(gen, case, bc_dtype, x_dtype=torch.float32,
+                view: int = 0) -> tuple:
     """The reference test's distributions: x, dt (softplus'd), A
-    (negative), Bm, Cm; B and C in ``bc_dtype``."""
+    (negative), Bm, Cm; x in ``x_dtype``, B and C in ``bc_dtype``.
+    ``view``: x is a slice ``view`` elements into rows of (B, T, H * P +
+    16), as the model's x is a slice of the convolution's output (8 keeps
+    the 16-byte rule, 1 breaks it)."""
     B, T, H, P, N, _ = case
-    x = _rand(gen, (B, T, H, P), torch.float32)
+    x = _rand(gen, (B, T, H, P), x_dtype)
+    if view:
+        wide = torch.zeros((B, T, H * P + 16), dtype=x_dtype, device=DEV)
+        wide[..., view:view + H * P] = x.reshape(B, T, H * P)
+        x = wide[..., view:view + H * P].unflatten(-1, (H, P))
     dt = F.softplus(_rand(gen, (B, T, H), torch.float32, 1.0))
     A = -torch.exp(_rand(gen, (H,), torch.float32))
     return (x, dt, A, _rand(gen, (B, T, N), bc_dtype),
             _rand(gen, (B, T, N), bc_dtype))
 
 
-def _ssd_work(case, bc_dtype) -> tuple:
-    """(bytes, work) the scan needs, ``work`` as ``_bound`` takes it.  Each
-    input is read and each output written once; a multiply-add counts as
-    2, over the causal half of each chunk's (t, s) pairs.  C Bᵀ is the same
-    for every head, so it counts once per (batch, chunk), at the peak for
-    B and C's dtype (bf16 on the tensor cores, with float32 sums).  The
-    products with xdt and with the state are float32 (67 TFLOP/s); the
-    entering-state term counts only after the first chunk, where the state
-    entering is zero."""
+def _ssd_work_f32_cores(case, bc_dtype) -> tuple:
+    """(bytes, work) as the first body counted them, for the history:
+    the wrapper's float32 xdt and dA read and y written heads-first, C Bᵀ
+    once per (batch, chunk) at the peak for B and C's dtype, the other
+    products at the float32 CUDA-core peak (67 TFLOP/s)."""
     B, T, H, P, N, c = case
     nc = T // c
     nbytes = 4 * (2 * B * H * T * P + B * H * T + B * H * P * N) \
@@ -542,10 +562,24 @@ def _ssd_work(case, bc_dtype) -> tuple:
     return nbytes, (scores, f32)
 
 
+def _check_ssd(gen, case, bc, xd, view=0) -> tuple:
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, case, bc, xd, view)
+    y, st = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=case[-1])
+    yr, sr = ssd_chunked(x.float(), dt, A, Bm, Cm, case[-1])
+    torch.cuda.synchronize()
+    for got, want in ((y, yr), (st, sr)):
+        assert torch.isfinite(got).all(), ("ssd", case, bc, xd, view)
+        assert torch.allclose(got, want, atol=SSD_TOL, rtol=SSD_TOL), \
+            ("ssd kernel disagrees", case, bc, xd, view, _maxerr(got, want))
+    return max(_maxerr(y, yr), _maxerr(st, sr)), _relerr(y, yr)
+
+
 def phase_ssd() -> dict:
     """K4 against its plain version over the reference's cases and the two
-    serving shapes, with float32 and bfloat16 B/C, at 2e-3; timed at the
-    Mamba2 serving shape with bf16 B/C, as the bf16 model gives them."""
+    serving shapes, with float32 and bfloat16 x and B/C, and x as a
+    strided slice (16-byte aligned as the model's, and not), at 2e-3;
+    timed at the Mamba2 serving shape in bf16, as the bf16 model gives
+    its inputs."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(4)
     shapes = {}
@@ -555,56 +589,52 @@ def phase_ssd() -> dict:
         shapes[arch] = (BATCH, PROMPT, H, P, cfg.ssm_state_size,
                         min(cfg.ssm_chunk_size, PROMPT))
     worst = {}
-    for bc in (torch.float32, torch.bfloat16):
-        errs = []
-        for case in SSD_CASES + list(shapes.values()):
-            x, dt, A, Bm, Cm = _ssd_inputs(gen, case, bc)
-            y, st = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=case[-1])
-            yr, sr = ssd_chunked(x, dt, A, Bm, Cm, case[-1])
-            torch.cuda.synchronize()
-            for got, want in ((y, yr), (st, sr)):
-                assert torch.isfinite(got).all(), ("ssd", case, bc)
-                assert torch.allclose(got, want, atol=SSD_TOL, rtol=SSD_TOL), \
-                    ("ssd kernel disagrees", case, bc, _maxerr(got, want))
-            errs.append((max(_maxerr(y, yr), _maxerr(st, sr)),
-                         _relerr(y, yr)))
-        worst[bc] = (max(e for e, _ in errs), max(r for _, r in errs),
-                     len(errs))
-    (f_abs, f_rel, n), (b_abs, b_rel, _) = (worst[torch.float32],
-                                            worst[torch.bfloat16])
+    for xd in (torch.float32, torch.bfloat16):
+        for bc in (torch.float32, torch.bfloat16):
+            errs = [_check_ssd(gen, case, bc, xd)
+                    for case in SSD_CASES + list(shapes.values())]
+            errs += [_check_ssd(gen, SSD_CASES[2], bc, xd, view)
+                     for view in (8, 1)]
+            worst[xd, bc] = (max(e for e, _ in errs),
+                             max(r for _, r in errs), len(errs))
+    shown = "; ".join(
+        f"x {str(xd)[6:]} B/C {str(bc)[6:]} {a:.3e} ({r:.3e} of mean "
+        f"|plain y|)" for (xd, bc), (a, r, _) in worst.items())
+    n = next(iter(worst.values()))[2]
     print(f"[kernels] ssd_scan: max |kernel - plain| (y and state) over {n} "
-          f"cases: float32 B/C {f_abs:.3e} ({f_rel:.3e} of mean |plain y|), "
-          f"bfloat16 B/C {b_abs:.3e} ({b_rel:.3e}); tol {SSD_TOL:g}")
+          f"cases each (two with x a strided slice): {shown}; tol "
+          f"{SSD_TOL:g}")
 
     case = shapes[SSM_ARCH]
-    x, dt, A, Bm, Cm = _ssd_inputs(gen, case, torch.bfloat16)
     chunk = case[-1]
+    bf = torch.bfloat16
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, case, bf, bf)
     y, st = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
-    yr, sr = ssd_chunked(x, dt, A, Bm, Cm, chunk)
+    yr, sr = ssd_chunked(x.float(), dt, A, Bm, Cm, chunk)
     err = max(_maxerr(y, yr), _maxerr(st, sr))
-    xdt = (x * dt[..., None]).transpose(1, 2).contiguous()
-    dA = (dt * A).transpose(1, 2)[..., None].contiguous()
-    ms, dev = _ms(lambda: k4.ssd_scan_fwd(xdt, dA, Bm, Cm, chunk=chunk))
-    wrap = _time_ms(lambda: ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk))
-    plain = _time_ms(lambda: ssd_chunked(x, dt, A, Bm, Cm, chunk))
-    nbytes, work = _ssd_work(case, torch.bfloat16)
+    ms, dev = _ms(lambda: ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk))
+    plain = _time_ms(lambda: ssd_chunked(x.float(), dt, A, Bm, Cm, chunk))
+    nbytes, work = k4.work(*case, 2, 2)
     bound, by = _bound(nbytes, *work)
-    (cb, _), (f32, _) = work
-    print(f"[kernels] ssd_scan at (B, T, H, P, N, chunk) {case} bf16 B/C: "
-          f"kernel eager {ms:.4f} ms, device {dev:.4f} ms (through the "
-          f"model's wrapper, with xdt and dA "
-          f"formed: {wrap:.4f} ms), plain {plain:.4f} ms (ssd_chunked on "
-          f"the wrapper's inputs), bound {bound:.4f} ms ({by}: C B^T "
-          f"{cb / 1e9:.3f} GFLOP once per batch and chunk at the bf16 "
-          f"{BF16_FLOPS / 1e12:.0f} TFLOP/s, {f32 / 1e9:.3f} GFLOP at the "
-          f"float32 {F32_FLOPS / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB); "
+    (cb, _), (tf32, _) = work
+    old_bytes, old_work = _ssd_work_f32_cores(case, bf)
+    old_bound, old_by = _bound(old_bytes, *old_work)
+    print(f"[kernels] ssd_scan at (B, T, H, P, N, chunk) {case} bf16 x and "
+          f"B/C, through ops.ssd_scan ({k4.KERNELS_PER_CALL} kernels, xdt "
+          f"and dA formed inside): kernel eager {ms:.4f} ms, device "
+          f"{dev:.4f} ms; plain {plain:.4f} ms (ssd_chunked); bound "
+          f"{bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, C B^T "
+          f"{cb / 1e9:.3f} GFLOP at the bf16 {BF16_FLOPS / 1e12:.0f} "
+          f"TFLOP/s, {tf32 / 1e9:.3f} GFLOP of TF32 products, split ones "
+          f"counted thrice, at {TF32_FLOPS / 1e12:.0f} TFLOP/s); the first "
+          f"body's float32-CUDA-core bound {old_bound:.4f} ms ({old_by}); "
           f"no single PyTorch call computes the scan")
     return dict(name="ssd_scan_fwd", route="cuda",
                 source="src/repro_torch/kernels/csrc/ssd_scan.cu",
                 replaces="src/repro/kernels/ssd_scan/ssd_scan.py:80",
                 max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain,
                 bound_ms=bound, bound_by=by, library_ms=None,
-                library_device_ms=None)
+                library_device_ms=None, bound_ms_f32_cores=old_bound)
 
 
 def _paged_inputs(gen, case, dtype, shuffle: bool) -> tuple:
@@ -877,7 +907,10 @@ def _model_run(arch: str, dtype: str, steps: int) -> None:
               f"synchronised runs: prefill {BATCH}x{PROMPT} {pre_ms:.2f} ms, "
               f"decode step {step_ms:.2f} ms")
         names = (("flash", "flash_fwd_wgmma_kernel", n_attn),
-                 ("ssd_scan", "ssd_scan_kernel", n_mamba))
+                 ("ssd_scan", "ssd_", k4.KERNELS_PER_CALL * n_mamba),
+                 ("of which its chunk states", "ssd_chunk_state_kernel",
+                  n_mamba),
+                 ("and its output", "ssd_chunk_scan_kernel", n_mamba))
         kern, busy = _profile_in(run_prefill, tuple(k for _, k, _ in names))
         parts = []
         for (label, _, want), (ms, n) in zip(names, kern):
@@ -890,6 +923,20 @@ def _model_run(arch: str, dtype: str, steps: int) -> None:
               f"device activity {busy:.2f} ms, against the {pre_ms:.2f} ms "
               f"of an unprofiled prefill on the host clock (device idle "
               f"share {1 - busy / pre_ms:.1%})")
+
+        def run_step():
+            api.decode_step(params, ck, tok, pos - 1, cfg_k)
+
+        (dec, ssd), busy = _profile_in(run_step, ("::decode_kernel<", "ssd_"))
+        assert dec[1] == n_attn and ssd[1] == 0, ("decode step kernels", dec,
+                                                  ssd)
+        k2_part = (f"decode attention {dec[0]:.3f} ms over {dec[1]} kernels "
+                   f"(one per attention layer), {dec[0] / step_ms:.1%} of "
+                   f"the step; " if n_attn else "")
+        print(f"[model] {cfg.name} bf16 decode step under torch.profiler: "
+              f"{k2_part}all device activity {busy:.2f} ms, against the "
+              f"{step_ms:.2f} ms of an unprofiled step on the host clock "
+              f"(device idle share {1 - busy / step_ms:.1%})")
     bound = ("atol = rtol = 1e-4" if floor is None else
              f"atol {atol['prefill']:.3e} / {atol['decode']:.3e}, plain-path "
              f"rounding floor {floor:.3e}")

@@ -6,175 +6,486 @@
 // One query token per sequence against its KV cache, valid on [0, pos].
 // Bound on the card: each cache byte is used for ~G multiply-adds, far
 // below the ~295 operations per byte where compute would limit, so the
-// kernel is bound by the bytes of the live cache it reads.  A batch of a few
-// sequences has too few (batch x kv-head) rows to fill 132 SMs, so the key
-// axis is split (flash-decoding): grid (B*KV, n_split), each block scores
-// its key range for all G query heads of the kv head (the G heads share
-// every K/V tile read) and writes a partial (m, l, acc) in float32; a second
-// small kernel merges the splits.  Tiles past `pos` or before the window are
-// never read.  `pos` is read from device memory, so no step synchronises
-// with the host and a later version can capture the step in a CUDA graph.
+// kernel is bound by the bytes of the live cache it reads.  What the design
+// does about it, in ONE launch:
+//  - the key axis is split (flash-decoding) so that a small batch still
+//    fills the SMs: grid (B*KV, C, G chunks), C = min(n_split, MAX_CLUSTER)
+//    blocks of one (batch, kv head) form a thread-block cluster, and block y
+//    walks splits y, y + C, ... in turn;
+//  - each block streams its keys through an NSTAGE-deep ring of K/V tiles in
+//    shared memory, kept in their own dtype and filled by 16-byte cp.async
+//    (zero-filled past the split), so several tiles are in flight while one
+//    is scored.  A view whose pointers or strides break the 16-byte rule is
+//    copied element by element into the same ring;
+//  - the work is split by keys, not by query rows: a group of LPK lanes owns
+//    one key and reads its row as 16-byte vectors, the (up to GMAX) query
+//    rows of the chunk sit in shared memory as float, and the dot products
+//    reduce with shuffles inside the group.  Every warp is busy whatever G
+//    is; G above GMAX is cut into chunks (grid z);
+//  - each warp keeps a float32 online softmax per query row; the warps merge
+//    through shared memory, then, after a cluster barrier, each block of the
+//    cluster reads every block's (m, l, acc) through distributed shared
+//    memory for its share of the output elements and writes them.  No
+//    float32 partial goes to device memory and the call allocates nothing
+//    but its output.
+// Tiles past `pos` or before the window are never read.  `pos` is read from
+// device memory, so no step synchronises with the host and the call can be
+// captured in a CUDA graph.
 //
 // Numerics match the reference: q is scaled first and rounded to its own
-// dtype, the dot products and the softmax are float32, and the merge
+// dtype, the dot products and the softmax are float32 (finite NEG_INF), an
+// empty split carries (NEG_INF, 0, 0) and adds nothing, and the merge
 // divides by max(l, 1e-30).
+#include <cooperative_groups.h>
+
 #include "attn_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int NWARPS = 4;
+constexpr int NSTAGE = 4;         // K/V tiles in the shared-memory ring
+constexpr int MAX_CLUSTER = 16;   // blocks of one (batch, kv head) in a cluster
+constexpr int GMAX = 8;           // query rows a block holds at most (a G chunk)
 
-template <typename T, int DPL>
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The tiles one block walks: keys [lo, hi) of splits y, y + C, ..., KT keys
+// at a time, the first tile of a split aligned to KT from the split's start.
+struct TileWalk {
+  int sp, k0, hi;
+  int C, n_split, split_len, S, pos, window, KT;
+  __device__ void range() {
+    for (; sp < n_split; sp += C) {
+      const int s_begin = sp * split_len;
+      hi = min(min(S, s_begin + split_len), pos + 1);
+      int lo = s_begin;
+      if (window > 0) lo = max(lo, pos - window + 1);
+      k0 = s_begin + ((lo - s_begin) / KT) * KT;
+      if (k0 < hi) return;
+    }
+  }
+  __device__ bool valid() const { return sp < n_split; }
+  __device__ void next() {
+    k0 += KT;
+    if (k0 >= hi) {
+      sp += C;
+      range();
+    }
+  }
+};
+
+// LPK lanes per key (a power of two), VPL 16-byte vectors per lane, GB
+// query rows held (the block's chunk of the group has gb <= GB rows).
+// Scores and the softmax state live in the log2 domain (scores times
+// log2 e, exponentials by exp2f); NEG_INF stays the masked score.
+template <typename T, int LPK, int VPL, int GB>
 __global__ void __launch_bounds__(NWARPS * 32)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const int* __restrict__ pos_ptr, float* __restrict__ part_m,
-                    float* __restrict__ part_l, float* __restrict__ part_acc, int KV, int G,
-                    int S, int hd, long long k_sb, long long k_sh, long long k_ss,
-                    long long v_sb, long long v_sh, long long v_ss, int split_len, int window,
-                    float logit_cap, float scale) {
+decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              const int* __restrict__ pos_ptr, T* __restrict__ o, int KV, int G, int S, int hd,
+              long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+              long long v_ss, int split_len, int n_split, int window, float logit_cap,
+              float scale, int vec16) {
   using namespace attn;
-  const int bkv = blockIdx.x, split = blockIdx.y, n_split = gridDim.y;
+  constexpr float LOG2E = 1.4426950408889634f;
+  constexpr int VEC = 16 / sizeof(T);      // elements per 16-byte vector
+  constexpr int KPS = 32 / LPK;            // keys a warp scores at once
+  constexpr int R0 = 4 / VPL, RMAX = 64 / (NWARPS * KPS);
+  constexpr int R = R0 < RMAX ? R0 : RMAX; // keys per lane group per tile
+  constexpr int KT = NWARPS * KPS * R;     // keys per tile: divides 64
+  constexpr int E = VPL * VEC;             // accumulator columns per lane
+  static_assert(64 % KT == 0 && R >= 1, "tile");
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int bkv = blockIdx.x, C = gridDim.y;
   const int b = bkv / KV, h = bkv - b * KV;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g0 = blockIdx.z * GB, gb = min(GB, G - g0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = lane / LPK, li = lane % LPK;
+  const int NV = hd / VEC;                 // vectors per row
   const int pos = *pos_ptr;
 
-  extern __shared__ float smem[];
-  float* Qs = smem;                            // G rows of hd, pre-scaled
-  float* As = Qs + G * hd;                     // G rows of hd: accumulators
-  float* Ms = As + G * hd;                     // G running maxima
-  float* Ls = Ms + G;                          // G running sums
-  float* Ks = Ls + G;                          // BK rows of hd + 1
-  float* Vs = Ks + BK * (hd + 1);              // BK rows of hd
-  float* Pw = Vs + BK * hd + warp * BK;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = (T*)smem;                                   // NSTAGE x {K, V} tiles
+  const int tile_elems = KT * hd;
+  float* Qs = (float*)(smem + (size_t)NSTAGE * 2 * tile_elems * sizeof(T));
+  float* Bm = Qs + GB * hd;                             // the block's state
+  float* Bl = Bm + GB;
+  float* Bacc = Bl + GB;
 
-  const T* qb = q + (long long)bkv * G * hd;
-  for (int idx = threadIdx.x; idx < G * hd; idx += blockDim.x) {
-    Qs[idx] = round_to<T>(to_f(qb[idx]) * scale);
-    As[idx] = 0.f;
-  }
-  for (int r = threadIdx.x; r < G; r += blockDim.x) {
-    Ms[r] = NEG_INF;
-    Ls[r] = 0.f;
-  }
+  const T* qb = q + ((long long)bkv * G + g0) * hd;
+  for (int idx = tid; idx < GB * hd; idx += blockDim.x)
+    Qs[idx] = idx < gb * hd ? round_to<T>(to_f(qb[idx]) * scale) : 0.f;
   const T* kb = k + b * k_sb + h * k_sh;
   const T* vb = v + b * v_sb + h * v_sh;
 
-  const int s_begin = split * split_len;
-  const int hi = min(min(S, s_begin + split_len), pos + 1);
-  int lo = s_begin;
-  if (window > 0) lo = max(lo, pos - window + 1);
-  lo = s_begin + ((lo - s_begin) / BK) * BK;
-
-  for (int k0 = lo; k0 < hi; k0 += BK) {
-    __syncthreads();                           // previous tile consumed, state initialised
-    load_kv_tile(kb, vb, k_ss, v_ss, k0, hi, hd, Ks, Vs);
-    __syncthreads();
-    for (int r = warp; r < G; r += NWARPS) {
-      float s0, s1;
-      row_scores(Qs + r * hd, Ks, hd, lane, s0, s1);
-      s0 = cap_logit(s0, logit_cap);
-      s1 = cap_logit(s1, logit_cap);
-      const int kp0 = k0 + lane, kp1 = k0 + lane + 32;
-      const bool ok0 = kp0 < hi && (window <= 0 || kp0 > pos - window);
-      const bool ok1 = kp1 < hi && (window <= 0 || kp1 > pos - window);
-      s0 = ok0 ? s0 : NEG_INF;
-      s1 = ok1 ? s1 : NEG_INF;
-      const float m_old = Ms[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float e0 = expf(s0 - m_new), e1 = expf(s1 - m_new);
-      const float corr = expf(m_old - m_new);
-      const float l_new = Ls[r] * corr + warp_sum(e0 + e1);
-      Pw[lane] = e0;
-      Pw[lane + 32] = e1;
-      __syncwarp();
-      if (lane == 0) {
-        Ms[r] = m_new;
-        Ls[r] = l_new;
+  auto load = [&](int stage, int k0, int hi) {
+    T* Kt = ring + (size_t)stage * 2 * tile_elems;
+    T* Vt = Kt + tile_elems;
+    if (vec16) {
+      for (int idx = tid; idx < 2 * KT * NV; idx += blockDim.x) {
+        const int mat = idx >= KT * NV, rem = idx - mat * KT * NV;
+        const int j = rem / NV, c = rem - j * NV;
+        const int key = k0 + j;
+        const bool in = key < hi;
+        const long long row = in ? key : k0;
+        const T* src = mat ? vb + row * v_ss : kb + row * k_ss;
+        cp_async16((mat ? Vt : Kt) + j * hd + c * VEC, src + c * VEC, in);
       }
-      float* arow = As + r * hd;
+    } else {
+      for (int idx = tid; idx < 2 * KT * hd; idx += blockDim.x) {
+        const int mat = idx >= KT * hd, rem = idx - mat * KT * hd;
+        const int j = rem / hd, d = rem - j * hd;
+        const int key = k0 + j;
+        T x = from_f<T>(0.f);
+        if (key < hi) x = mat ? vb[(long long)key * v_ss + d] : kb[(long long)key * k_ss + d];
+        (mat ? Vt : Kt)[j * hd + d] = x;
+      }
+    }
+  };
+
+  TileWalk prod{(int)blockIdx.y, 0, 0, C, n_split, split_len, S, pos, window, KT};
+  prod.range();
+  TileWalk cons = prod;
 #pragma unroll
-      for (int c = 0; c < DPL; ++c) {
-        const int d = lane + 32 * c;
-        if (d < hd) {
-          float a = arow[d] * corr;
-          for (int j = 0; j < BK; ++j) a = fmaf(Pw[j], Vs[j * hd + d], a);
-          arow[d] = a;
+  for (int st = 0; st < NSTAGE - 1; ++st) {
+    if (prod.valid()) {
+      load(st, prod.k0, prod.hi);
+      prod.next();
+    }
+    cp_async_commit();
+  }
+
+  float m[GB], l[GB], acc[GB][E];
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+    m[g] = NEG_INF;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
+  }
+  const int wlo = window > 0 ? pos - window + 1 : -1;   // first key the window keeps
+
+  for (int it = 0; cons.valid(); ++it, cons.next()) {
+    cp_async_wait<NSTAGE - 2>();
+    __syncthreads();              // tile `it` landed; stage it - 1 is free again
+    if (prod.valid()) {
+      load((it + NSTAGE - 1) % NSTAGE, prod.k0, prod.hi);
+      prod.next();
+    }
+    cp_async_commit();
+
+    const T* Kt = ring + (size_t)(it % NSTAGE) * 2 * tile_elems;
+    const T* Vt = Kt + tile_elems;
+    float s[R][GB];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = warp * KPS * R + r * KPS + grp;
+      float kv[E];
+#pragma unroll
+      for (int u = 0; u < VPL; ++u) {
+        const int c = li + LPK * u;
+        const uint4 raw = c < NV ? *(const uint4*)(Kt + row * hd + c * VEC) : make_uint4(0, 0, 0, 0);
+        const T* e = (const T*)&raw;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) kv[u * VEC + j] = to_f(e[j]);
+      }
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        float dot = 0.f;
+#pragma unroll
+        for (int u = 0; u < VPL; ++u) {
+          const int c = min(li + LPK * u, NV - 1);   // idle lanes hold zeros in kv
+          const float* qr = Qs + g * hd + c * VEC;
+#pragma unroll
+          for (int j = 0; j < VEC; j += 4) {
+            const float4 qv = *(const float4*)(qr + j);
+            dot = fmaf(qv.x, kv[u * VEC + j], dot);
+            dot = fmaf(qv.y, kv[u * VEC + j + 1], dot);
+            dot = fmaf(qv.z, kv[u * VEC + j + 2], dot);
+            dot = fmaf(qv.w, kv[u * VEC + j + 3], dot);
+          }
+        }
+#pragma unroll
+        for (int off = LPK / 2; off > 0; off >>= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        s[r][g] = dot;
+      }
+    }
+    if (logit_cap > 0.f) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int g = 0; g < GB; ++g) s[r][g] = logit_cap * tanhf(s[r][g] / logit_cap);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int key = cons.k0 + warp * KPS * R + r * KPS + grp;
+      const bool ok = key < cons.hi && key >= wlo;
+#pragma unroll
+      for (int g = 0; g < GB; ++g) s[r][g] = ok ? s[r][g] * LOG2E : NEG_INF;
+    }
+
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      float mx = s[0][g];
+#pragma unroll
+      for (int r = 1; r < R; ++r) mx = fmaxf(mx, s[r][g]);
+#pragma unroll
+      for (int off = LPK; off < 32; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[g], mx);
+      const float corr = exp2f(m[g] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        s[r][g] = exp2f(s[r][g] - m_new);     // now the probability
+        sum += s[r][g];
+      }
+      l[g] = fmaf(l[g], corr, sum);
+      m[g] = m_new;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[g][e] *= corr;
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = warp * KPS * R + r * KPS + grp;
+#pragma unroll
+      for (int u = 0; u < VPL; ++u) {
+        const int c = li + LPK * u;
+        const uint4 raw = c < NV ? *(const uint4*)(Vt + row * hd + c * VEC) : make_uint4(0, 0, 0, 0);
+        const T* e = (const T*)&raw;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float vv = to_f(e[j]);
+#pragma unroll
+          for (int g = 0; g < GB; ++g) acc[g][u * VEC + j] = fmaf(s[r][g], vv, acc[g][u * VEC + j]);
         }
       }
-      __syncwarp();
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                // the ring is free: it holds the warps' states now
+
+  // the lane groups of a warp share m; sum their l and acc
+  float* Wm = (float*)smem;                   // NWARPS x GB
+  float* Wl = Wm + NWARPS * GB;
+  float* Wacc = Wl + NWARPS * GB;             // NWARPS x GB x hd
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+#pragma unroll
+    for (int off = LPK; off < 32; off <<= 1) {
+      l[g] += __shfl_xor_sync(0xffffffffu, l[g], off);
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+    }
+    if (grp == 0) {
+#pragma unroll
+      for (int u = 0; u < VPL; ++u) {
+        const int c = li + LPK * u;
+        if (c < NV) {
+#pragma unroll
+          for (int j = 0; j < VEC; j += 4)
+            *(float4*)(Wacc + (warp * GB + g) * hd + c * VEC + j) =
+                make_float4(acc[g][u * VEC + j], acc[g][u * VEC + j + 1],
+                            acc[g][u * VEC + j + 2], acc[g][u * VEC + j + 3]);
+        }
+      }
+    }
+    if (lane == 0) {
+      Wm[warp * GB + g] = m[g];
+      Wl[warp * GB + g] = l[g];
     }
   }
   __syncthreads();
-
-  const long long part = (long long)bkv * n_split + split;
-  for (int r = threadIdx.x; r < G; r += blockDim.x) {
-    part_m[part * G + r] = Ms[r];
-    part_l[part * G + r] = Ls[r];
+  for (int idx = tid; idx < gb * hd; idx += blockDim.x) {
+    const int g = idx / hd;
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) M = fmaxf(M, Wm[w * GB + g]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) {
+      const float e = exp2f(Wm[w * GB + g] - M);
+      L = fmaf(Wl[w * GB + g], e, L);
+      A = fmaf(Wacc[(w * GB) * hd + idx], e, A);
+    }
+    Bacc[idx] = A;
+    if (idx - g * hd == 0) {
+      Bm[g] = M;
+      Bl[g] = L;
+    }
   }
-  for (int idx = threadIdx.x; idx < G * hd; idx += blockDim.x)
-    part_acc[part * G * hd + idx] = As[idx];
+
+  // the splits merge through distributed shared memory, each block of the
+  // cluster finishing its own runs of blockDim.x output elements
+  cluster.sync();
+  const int nblk = C, rank = (int)cluster.block_rank();
+  for (int idx = rank * blockDim.x + tid; idx < gb * hd; idx += nblk * blockDim.x) {
+    const int g = idx / hd;
+    float rm[MAX_CLUSTER], rl[MAX_CLUSTER], ra[MAX_CLUSTER];
+#pragma unroll
+    for (int r = 0; r < MAX_CLUSTER; ++r) {
+      if (r < nblk) {
+        rm[r] = cluster.map_shared_rank(Bm, r)[g];
+        rl[r] = cluster.map_shared_rank(Bl, r)[g];
+        ra[r] = cluster.map_shared_rank(Bacc, r)[idx];
+      }
+    }
+    float M = NEG_INF;
+#pragma unroll
+    for (int r = 0; r < MAX_CLUSTER; ++r)
+      if (r < nblk) M = fmaxf(M, rm[r]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int r = 0; r < MAX_CLUSTER; ++r) {
+      if (r < nblk) {
+        const float e = exp2f(rm[r] - M);
+        L = fmaf(rl[r], e, L);
+        A = fmaf(ra[r], e, A);
+      }
+    }
+    o[((long long)bkv * G + g0) * hd + idx] = from_f<T>(A / fmaxf(L, 1e-30f));
+  }
+  cluster.sync();                 // no block leaves while another reads it
 }
 
-template <typename T, int DPL>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* pos, float* pm,
-                   float* pl, float* pa, void* o, int BKV, int KV, int G, int S, int hd,
-                   const long long* st, int split_len, int n_split, int window,
-                   float logit_cap, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * (size_t)G * hd + 2 * G + attn::BK * (hd + 1) +
-                                       attn::BK * hd + NWARPS * attn::BK);
-  auto kern = decode_split_kernel<T, DPL>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+template <typename T, int LPK, int VPL, int GB>
+cudaError_t launch(const void* q, const void* k, const void* v, const int* pos, void* o,
+                   int BKV, int KV, int G, int S, int hd, const long long* st, int split_len,
+                   int n_split, int window, float logit_cap, float scale, int vec16,
+                   cudaStream_t stream) {
+  constexpr int KPS = 32 / LPK, R0 = 4 / VPL, RMAX = 64 / (NWARPS * KPS);
+  constexpr int KT = NWARPS * KPS * (R0 < RMAX ? R0 : RMAX);
+  const int n_chunk = (G + GB - 1) / GB;
+  const int C = n_split < MAX_CLUSTER ? n_split : MAX_CLUSTER;
+  const size_t smem = (size_t)NSTAGE * 2 * KT * hd * sizeof(T) +
+                      sizeof(float) * (2 * GB * hd + 2 * GB);
+  auto kern = decode_kernel<T, LPK, VPL, GB>;
+  // the kernel's attributes, set once per device and shared-memory size
+  static size_t smem_set[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  kern<<<dim3(BKV, n_split), NWARPS * 32, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, pos, pm, pl, pa, KV, G, S, hd, st[0], st[1],
-      st[2], st[3], st[4], st[5], split_len, window, logit_cap, scale);
-  err = cudaGetLastError();
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (smem > smem_set[dev]) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    smem_set[dev] = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(BKV, C, n_chunk);
+  cfg.blockDim = dim3(NWARPS * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = C;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const T*)k, (const T*)v, pos, (T*)o, KV,
+                           G, S, hd, st[0], st[1], st[2], st[3], st[4], st[5], split_len,
+                           n_split, window, logit_cap, scale, vec16);
   if (err != cudaSuccess) return err;
-  attn::merge_splits_kernel<T><<<BKV, 128, 0, stream>>>(pm, pl, pa, (T*)o, G, hd, n_split);
   return cudaGetLastError();
 }
 
+template <typename T, int LPK, int VPL>
+cudaError_t by_group(int G, const void* q, const void* k, const void* v, const int* pos,
+                     void* o, int BKV, int KV, int S, int hd, const long long* st,
+                     int split_len, int n_split, int window, float cap, float scale,
+                     int vec16, cudaStream_t s) {
+  // rows per block: the group cut into chunks of at most GMAX, rounded up
+  // to an instantiated size
+  const int n_chunk = (G + GMAX - 1) / GMAX, need = (G + n_chunk - 1) / n_chunk;
+#define DECODE_GB(GB)                                                                         \
+  return launch<T, LPK, VPL, GB>(q, k, v, pos, o, BKV, KV, G, S, hd, st, split_len, n_split, \
+                                 window, cap, scale, vec16, s)
+  if (need <= 1) DECODE_GB(1);
+  if (need <= 2) DECODE_GB(2);
+  if (need <= 3) DECODE_GB(3);
+  if (need <= 4) DECODE_GB(4);
+  DECODE_GB(GMAX);
+#undef DECODE_GB
+}
+
 template <typename T>
-cudaError_t dispatch(int dpl, const void* q, const void* k, const void* v, const int* pos,
-                     float* pm, float* pl, float* pa, void* o, int BKV, int KV, int G, int S,
-                     int hd, const long long* st, int split_len, int n_split, int window,
-                     float logit_cap, float scale, cudaStream_t s) {
-  switch (dpl) {
-    case 1: return launch<T, 1>(q, k, v, pos, pm, pl, pa, o, BKV, KV, G, S, hd, st, split_len, n_split, window, logit_cap, scale, s);
-    case 2: return launch<T, 2>(q, k, v, pos, pm, pl, pa, o, BKV, KV, G, S, hd, st, split_len, n_split, window, logit_cap, scale, s);
-    case 4: return launch<T, 4>(q, k, v, pos, pm, pl, pa, o, BKV, KV, G, S, hd, st, split_len, n_split, window, logit_cap, scale, s);
-    case 8: return launch<T, 8>(q, k, v, pos, pm, pl, pa, o, BKV, KV, G, S, hd, st, split_len, n_split, window, logit_cap, scale, s);
-  }
+cudaError_t dispatch(int hd, int G, const void* q, const void* k, const void* v,
+                     const int* pos, void* o, int BKV, int KV, int S, const long long* st,
+                     int split_len, int n_split, int window, float cap, float scale,
+                     int vec16, cudaStream_t s) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int nv = hd / VEC;        // 16-byte vectors per row: 1 .. 64
+#define DECODE_LAUNCH(LPK, VPL)                                                               \
+  return by_group<T, LPK, VPL>(G, q, k, v, pos, o, BKV, KV, S, hd, st, split_len, n_split,  \
+                               window, cap, scale, vec16, s)
+  if (nv <= 4) DECODE_LAUNCH(4, 1);
+  if (nv <= 8) DECODE_LAUNCH(8, 1);
+  if (nv <= 16) DECODE_LAUNCH(16, 1);
+  if (nv <= 32) DECODE_LAUNCH(32, 1);
+  if (sizeof(T) == 4 && nv <= 64) DECODE_LAUNCH(32, 2);
+#undef DECODE_LAUNCH
   return cudaErrorInvalidValue;
+}
+
+bool aligned16(const void* p, const long long* st, int n, size_t size) {
+  if ((size_t)p % 16) return false;
+  for (int i = 0; i < n; ++i)
+    if ((st[i] * (long long)size) % 16) return false;
+  return true;
 }
 
 }  // namespace
 
 extern "C" {
 
+// The launcher's constants, for the Python side to check: {MAX_CLUSTER,
+// NSTAGE, GMAX}.
+void decode_attention_config(int* out) {
+  out[0] = MAX_CLUSTER;
+  out[1] = NSTAGE;
+  out[2] = GMAX;
+}
+
 // q, o: (B, H, hd) contiguous, H = KV * G; k, v: (B, KV, S, hd) or any layout
 // with strides k_sb, k_sh, k_ss (elements) over batch, kv head and slot and a
 // contiguous last dim; strides = {k_sb, k_sh, k_ss, v_sb, v_sh, v_ss}.  pos:
-// one int32 on the device.  part_m, part_l: (B*KV, n_split, G) float32
-// scratch; part_acc: (B*KV, n_split, G, hd).  split_len is a multiple of 64.
-// dtype 0 = float32, 1 = bfloat16; window <= 0 and logit_cap <= 0 mean none.
-// Returns cudaGetLastError() after the two launches.
-int decode_attention_fwd(const void* q, const void* k, const void* v, const void* pos,
-                         void* part_m, void* part_l, void* part_acc, void* o, int dtype,
-                         int B, int KV, int G, int S, int hd, const long long* strides,
-                         int split_len, int n_split, int window, float logit_cap, float scale,
-                         void* stream) {
-  if (hd % 8 != 0 || hd > 256 || split_len % attn::BK != 0) return (int)cudaErrorInvalidValue;
-  const int dpl = hd <= 32 ? 1 : hd <= 64 ? 2 : hd <= 128 ? 4 : 8;
+// one int32 on the device.  split_len is a multiple of 64; n_split =
+// ceil(S / split_len) splits of any number (a cluster holds up to
+// MAX_CLUSTER; its blocks walk the rest in turn).  dtype 0 = float32,
+// 1 = bfloat16; window <= 0 and logit_cap <= 0 mean none.  One launch;
+// returns cudaGetLastError() after it.
+int decode_attention_fwd(const void* q, const void* k, const void* v, const void* pos, void* o,
+                         int dtype, int B, int KV, int G, int S, int hd,
+                         const long long* strides, int split_len, int n_split, int window,
+                         float logit_cap, float scale, void* stream) {
+  if (hd % 8 != 0 || hd > 256 || split_len % 64 != 0 || n_split < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int* p = (const int*)pos;
-  float *pm = (float*)part_m, *pl = (float*)part_l, *pa = (float*)part_acc;
-  cudaError_t err = dtype == 0
-      ? dispatch<float>(dpl, q, k, v, p, pm, pl, pa, o, B * KV, KV, G, S, hd, strides,
-                        split_len, n_split, window, logit_cap, scale, s)
-      : dispatch<__nv_bfloat16>(dpl, q, k, v, p, pm, pl, pa, o, B * KV, KV, G, S, hd,
-                                strides, split_len, n_split, window, logit_cap, scale, s);
+  const size_t size = dtype == 0 ? 4 : 2;
+  const int vec16 = aligned16(k, strides, 3, size) && aligned16(v, strides + 3, 3, size);
+  cudaError_t err =
+      dtype == 0 ? dispatch<float>(hd, G, q, k, v, p, o, B * KV, KV, S, strides, split_len,
+                                   n_split, window, logit_cap, scale, vec16, s)
+                 : dispatch<__nv_bfloat16>(hd, G, q, k, v, p, o, B * KV, KV, S, strides,
+                                           split_len, n_split, window, logit_cap, scale,
+                                           vec16, s);
   return (int)err;
 }
 

@@ -72,6 +72,9 @@ def _resolve_split_len(split_len: Optional[int], q, BKV: int, G: int,
 
 
 def _pos_on_device(pos, device) -> torch.Tensor:
+    if isinstance(pos, torch.Tensor) and pos.dtype == torch.int32 \
+            and pos.device == device and pos.numel() == 1:
+        return pos.reshape(1)     # the model's step counter, as a view
     return torch.as_tensor(pos, device=device).reshape(1).to(torch.int32)
 
 

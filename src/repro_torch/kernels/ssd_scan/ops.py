@@ -1,11 +1,14 @@
 """Public wrapper of the SSD-scan kernel, in the model's layout.
 
-Counterpart of ``repro.kernels.ssd_scan.ops.ssd_scan``: it forms
-``xdt = x * dt`` and ``dA = dt * A`` in float32 and moves heads before time,
-as the reference does outside its ``pallas_call``, and moves y back.  A CPU
-tensor goes to the plain chunked version (``models.mamba.ssd_chunked``, in
-float32); a CUDA tensor launches the Hopper kernel.  Anything the kernel does not take (dtype,
-head or state size, chunk, layout, device) raises; nothing falls back.
+Counterpart of ``repro.kernels.ssd_scan.ops.ssd_scan``, with its
+signature and results.  The reference forms ``xdt = x * dt`` and
+``dA = dt * A`` in float32 and moves heads before time outside its
+``pallas_call``; here the Hopper kernel reads x, dt and A in the model's
+layout through their strides and forms both itself, so a call launches
+the scan's kernels and no elementwise pass.  A CPU tensor goes to the plain
+chunked version (``models.mamba.ssd_chunked``, in float32); a CUDA tensor
+launches the kernel.  Anything the kernel does not take (dtype, head or
+state size, chunk, layout, device) raises; nothing falls back.
 
 ``chunk=None`` consults the autotune cache (``repro_torch.perf.autotune``)
 for the best-known chunk of this shape class, dtype and device, else takes
@@ -43,6 +46,11 @@ def _check(x, dt, A, Bm, Cm, chunk: int) -> None:
             or tuple(Bm.shape[:2]) != (B, T):
         raise ValueError("ssd_scan: x, dt, A, Bm and Cm disagree on batch, "
                          "time or heads")
+    if x.dtype not in _kernel._DTYPES or dt.dtype != torch.float32 \
+            or A.dtype != torch.float32:
+        raise ValueError(f"ssd_scan: x/dt/A dtype {x.dtype}/{dt.dtype}/"
+                         f"{A.dtype} (x float32 or bfloat16, dt and A "
+                         "float32)")
     if Bm.dtype != Cm.dtype or Bm.dtype not in _kernel._DTYPES:
         raise ValueError(f"ssd_scan: Bm/Cm dtype {Bm.dtype}/{Cm.dtype} "
                          "(float32 or bfloat16, both alike)")
@@ -53,8 +61,10 @@ def _check(x, dt, A, Bm, Cm, chunk: int) -> None:
     if not 1 <= chunk <= _kernel.MAX_CHUNK or T % chunk:
         raise ValueError(f"ssd_scan: chunk {chunk} must divide T={T} and be "
                          f"at most {_kernel.MAX_CHUNK}")
-    if Bm.stride(-1) != 1 or Cm.stride(-1) != 1:
-        raise ValueError("ssd_scan: Bm and Cm need a contiguous last dim")
+    if Bm.stride(-1) != 1 or Cm.stride(-1) != 1 or x.stride(-1) != 1 \
+            or not A.is_contiguous():
+        raise ValueError("ssd_scan: x, Bm and Cm need a contiguous last dim "
+                         "and A must be contiguous")
     if len({t.device for t in (x, dt, A, Bm, Cm)}) != 1:
         raise ValueError("ssd_scan: tensors on different devices")
 
@@ -82,8 +92,4 @@ def ssd_scan(
         return ssd_chunked(x.float(), dt.float(), A.float(), Bm, Cm, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: no kernel for device {x.device}")
-    dt32 = dt.float()
-    xdt = (x.float() * dt32[..., None]).transpose(1, 2).contiguous()
-    dA = (dt32 * A.float()).transpose(1, 2)[..., None].contiguous()
-    y, state = _kernel.ssd_scan_fwd(xdt, dA, Bm, Cm, chunk=chunk)
-    return y.transpose(1, 2), state
+    return _kernel.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk)

@@ -63,6 +63,7 @@ from repro_torch.kernels.decode_attention import decode_attention as _k2
 from repro_torch.kernels.decode_attention import \
     paged_decode_attention as _k3
 from repro_torch.kernels.flash_attention import flash_attention as _k1
+from repro_torch.kernels.ssd_scan import ssd_scan as _k4
 from repro_torch.perf import profile_store
 from repro_torch.perf.roofline import (BF16_FLOPS, F32_FLOPS, HBM_BPS,
                                        NUM_SMS, SMEM_PER_BLOCK)
@@ -206,8 +207,8 @@ def _key(kernel: str, backend: str, dtype: str, cls: dict) -> str:
 
 # ---------------------------------------------------------------------------
 # Candidates, and the roofline model of each: (bound seconds, shared-memory
-# bytes per block).  The kernels' float32 math runs on the CUDA cores; the
-# flash kernel's bf16 body on the tensor cores.
+# bytes per block).  The decode kernels' math runs on the CUDA cores; the
+# flash kernel's bf16 body and the SSD scan run on the tensor cores.
 # ---------------------------------------------------------------------------
 def _k1_tile(G: int) -> dict:
     """The one tile of the flash kernel's mma_sync and CUDA-core bodies."""
@@ -237,8 +238,11 @@ def _bound(flops: float, peak: float, nbytes: float, blocks: int) -> float:
     return max(flops / peak, nbytes / HBM_BPS) / fill
 
 
-def _decode_smem(G: int, hd: int) -> int:
-    return 4 * (2 * G * hd + 2 * G + _BK * (hd + 1) + _BK * hd + 4 * _BK)
+def _paged_smem(G: int, hd: int) -> int:
+    """The paged kernel's block: float32 K/V tiles, G rows of q and
+    accumulators, the running maxima and sums, the table entries."""
+    return 16 * _BK + 4 * (2 * G * hd + 2 * G + _BK * (hd + 1) + _BK * hd
+                           + 4 * _BK)
 
 
 def _flash_candidates(cls: dict, on_card: bool,
@@ -286,10 +290,12 @@ def _decode_model(cls: dict, cand: dict, sz: int,
                   on_card: bool = True) -> tuple:
     BKV, G, hd, S = cls["BKV"], cls["G"], cls["hd"], cls["S"]
     ns = math.ceil(S / cand["split_len"])
-    # the cache, q and o once; the float32 partials written and read once
-    nbytes = BKV * (sz * (2 * S * hd + 2 * G * hd) + 8 * ns * G * (hd + 2))
+    # one launch: the cache, q and o once; the splits merge in shared
+    # memory, so no partials move
+    nbytes = BKV * sz * (2 * S * hd + 2 * G * hd)
     flops = 4.0 * BKV * G * S * hd
-    return _bound(flops, F32_FLOPS, nbytes, BKV * ns), _decode_smem(G, hd)
+    return (_bound(flops, F32_FLOPS, nbytes, _k2.blocks(BKV, G, ns)),
+            _k2.smem_bytes(sz, hd, G))
 
 
 def _paged_candidates(cls: dict, on_card: bool,
@@ -310,7 +316,7 @@ def _paged_model(cls: dict, cand: dict, sz: int,
                     + 8 * n_split * G * (hd + 2))
     flops = 4.0 * BKV * G * keys * hd
     return (_bound(flops, F32_FLOPS, nbytes, BKV * n_split),
-            16 * _BK + _decode_smem(G, hd))
+            _paged_smem(G, hd))
 
 
 def _ssd_candidates(cls: dict, on_card: bool,
@@ -324,13 +330,15 @@ def _ssd_model(cls: dict, cand: dict, sz: int,
                on_card: bool = True) -> tuple:
     H, P, N, T = cls["H"], cls["P"], cls["N"], cls["T"]
     c = cand["chunk"]
-    # intra-chunk terms are quadratic in the chunk, the state terms are not
-    flops = H * T * (2.0 * c * (N + P) + 4.0 * N * P)
-    nbytes = 4 * H * (2 * T * P + T + P * N) + sz * 2 * T * N
-    # the kernel's shared memory: state, 64 x 64 tiles, 16-column slices
-    smem = 4 * (P * (N + 1) + 64 * 65 + 64 * (P + 1) + 2 * 64 * 17
-                + math.ceil(c / 64) * 64 + 8)
-    return _bound(flops, F32_FLOPS, nbytes, H), smem   # one block per head
+    # one sequence: the bytes and products the kernel needs, each product
+    # at the peak of the tensor-core unit it runs on; the output kernel's
+    # grid, (64-row tiles, groups of 4 heads, chunks), decides the fill
+    nbytes, work = _k4.work(1, T, H, P, N, c, sz, sz)
+    t_ops = sum(flops / peak for flops, peak in work)
+    blocks = -(-c // _k4.TILE) * -(-H // _k4.HEADS_PER_BLOCK) * (T // c)
+    fill = min(blocks / NUM_SMS, 1.0)
+    return (max(t_ops, nbytes / HBM_BPS) / fill,
+            _k4.smem_bytes(sz, sz, P, N, c))
 
 
 _KERNELS: dict = {
@@ -477,11 +485,11 @@ def _ssd_bench(cls: dict, dtype, cand: dict, device) -> Callable:
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
     H, P, N, T = cls["H"], cls["P"], cls["N"], cls["T"]
     gen = torch.Generator(device=device).manual_seed(2)
-    x = _randn(gen, (1, T, H, P), device, scale=0.5)
+    x = _randn(gen, (1, T, H, P), device, dtype, 0.5)  # x, B and C in
     dt = torch.nn.functional.softplus(_randn(gen, (1, T, H), device))
     A = -torch.exp(_randn(gen, (H,), device, scale=0.5))
-    Bm = _randn(gen, (1, T, N), device, dtype, 0.5)   # B and C in `dtype`,
-    Cm = _randn(gen, (1, T, N), device, dtype, 0.5)   # as the model passes them
+    Bm = _randn(gen, (1, T, N), device, dtype, 0.5)   # `dtype`, as the model
+    Cm = _randn(gen, (1, T, N), device, dtype, 0.5)   # passes them
     return lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=cand["chunk"])
 
 

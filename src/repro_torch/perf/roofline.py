@@ -15,6 +15,7 @@ cost model (ROADMAP queue 1, item 6).
 from __future__ import annotations
 
 BF16_FLOPS = 989e12         # dense bf16 tensor-core peak, FLOP/s
+TF32_FLOPS = 495e12         # dense TF32 tensor-core peak, FLOP/s
 F32_FLOPS = 67e12           # float32 peak outside the tensor cores, FLOP/s
 HBM_BPS = 3.35e12           # device memory, bytes/s
 SMEM_PER_BLOCK = 232_448    # shared memory one block can use (227 KB), bytes

@@ -363,3 +363,52 @@ def test_entries_never_collide_with_the_reference(tmp_path):
         ref_at.configure(tune_on_miss=False, enabled=True)
         autotune._state["cache_dir"] = prev
         autotune.configure(tune_on_miss=False, enabled=True)
+
+
+def test_decode_model_counts_the_cache_once_and_one_launch():
+    """The split-K decode model: the cache, q and o each moved once and no
+    float32 partials (the splits merge in shared memory), the blocks of
+    one launch, the kernel's own shared memory."""
+    from repro_torch.kernels.decode_attention import decode_attention as k2
+    from repro_torch.perf.roofline import F32_FLOPS, HBM_BPS
+    cls = {"BKV": 64, "G": 3, "hd": 64, "S": 1024}
+    t, smem = autotune._decode_model(cls, {"split_len": 128}, 2)
+    nbytes = 64 * 2 * (2 * 1024 * 64 + 2 * 3 * 64)
+    flops = 4.0 * 64 * 3 * 1024 * 64
+    assert k2.blocks(64, 3, 8) == 64 * 8 >= 132        # fills the card
+    assert t == pytest.approx(max(flops / F32_FLOPS, nbytes / HBM_BPS))
+    assert smem == k2.smem_bytes(2, 64, 3) == \
+        4 * 2 * 64 * 64 * 2 + 4 * (2 * 3 * 64 + 2 * 3)
+    # more splits than a cluster holds add no blocks
+    assert k2.blocks(64, 3, 64) == k2.blocks(64, 3, 16) == 64 * 16
+
+
+def test_ssd_model_counts_bytes_and_products_by_unit():
+    """The SSD-scan model at the Mamba2 class: the fused kernel's bytes
+    (bf16 x, B and C; float32 dt, A, y and the final state), C Bᵀ once
+    per chunk at the bf16 peak, the split-TF32 products at the TF32 peak,
+    and the output kernel's grid for the fill."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as k4
+    from repro_torch.perf.roofline import BF16_FLOPS, HBM_BPS, TF32_FLOPS
+    nbytes, work = k4.work(1, 512, 64, 64, 128, 256, 2, 2)
+    assert nbytes == (2 * 512 * 64 * 64 + 4 * 512 * 64 + 4 * 64
+                      + 2 * 2 * 512 * 128 + 4 * 512 * 64 * 64
+                      + 4 * 64 * 64 * 128)
+    pairs = 2 * 256 * 257 // 2
+    assert work == [(2 * pairs * 128, BF16_FLOPS),
+                    (2 * 64 * (3 * pairs * 64 + 2 * 512 * 64 * 128
+                               + 2 * 256 * 64 * 128), TF32_FLOPS)]
+    t_ops = sum(f / p for f, p in work)
+    cls = autotune.shape_class("ssd_scan", H=64, P=64, N=128, T=512)
+    t, smem = autotune._ssd_model(cls, {"chunk": 256}, 2)
+    blocks = 4 * (64 // k4.HEADS_PER_BLOCK) * 2      # t tiles x head groups x chunks
+    assert t == pytest.approx(max(t_ops, nbytes / HBM_BPS)
+                              / min(blocks / 132, 1.0))
+    assert smem == k4.smem_bytes(2, 2, 64, 128, 256) <= SMEM_PER_BLOCK
+    # float32 B and C: C Bᵀ as three TF32 products, the products against B
+    # and C three too
+    _, w32 = k4.work(1, 512, 64, 64, 128, 256, 4, 4)
+    assert w32[0] == (3 * 2 * pairs * 128, TF32_FLOPS)
+    assert w32[1][0] - work[1][0] == 2 * 64 * (512 + 256) * 64 * 128
+    # the Mamba2 serving batch moves about 120 MB
+    assert 120e6 < k4.work(8, 512, 64, 64, 128, 256, 2, 2)[0] < 121e6

@@ -550,3 +550,135 @@ def test_plain_flash_on_the_card_ignores_the_tuned_tile(gpu, tmp_path):
     finally:
         autotune._state["cache_dir"] = prev
         autotune.configure(tune_on_miss=False)
+
+
+def _device_kernels(fn):
+    """The names of the CUDA kernels ``fn`` runs on the card, by
+    torch.profiler's trace."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", [64, 128])
+def test_decode_kernel_at_group_48(gpu, dtype, hd):
+    """G 48 (an MQA model): the group is cut into six blocks of 8 rows."""
+    B, S, H, KV, pos = 2, 1024, 48, 1, 700
+    q, k, v = _inputs(9, [(B, H, hd), (B, S, KV, hd), (B, S, KV, hd)],
+                      dtype, gpu)
+    out = dec_ops.decode_attention(q, k * 4, v, pos, window=300)
+    tol = DTYPES[dtype][1]
+    torch.testing.assert_close(
+        out.float(), decode_attention_ref(q, k * 4, v, pos,
+                                          window=300).float(),
+        atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("S,split_len", [(1024, 64), (2048, 64), (4096, 128)],
+                         ids=["16 splits", "32 splits", "32 splits of 128"])
+def test_decode_kernel_at_a_full_cluster_and_past_it(gpu, dtype, S,
+                                                     split_len):
+    """16 splits fill the largest cluster; more have each block walk
+    several splits in turn."""
+    B, H, KV, hd = 2, 8, 2, 64
+    q, k, v = _inputs(10, [(B, H, hd), (B, S, KV, hd), (B, S, KV, hd)],
+                      dtype, gpu)
+    for pos in (S - 1, S // 3, 0):
+        out = dec_ops.decode_attention(q, k * 4, v, pos, split_len=split_len)
+        tol = DTYPES[dtype][1]
+        torch.testing.assert_close(
+            out.float(), decode_attention_ref(q, k * 4, v, pos).float(),
+            atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split_len", [None, 64])
+def test_decode_is_one_launch_and_allocates_only_its_output(gpu, split_len):
+    """One CUDA kernel per call, and the one allocation is the output: the
+    splits merge in the cluster's shared memory, not in float32 scratch."""
+    B, S, H, KV, hd = 8, 544, 15, 5, 64
+    q, k, v = _inputs(11, [(B, H, hd), (B, KV, S, hd), (B, KV, S, hd)],
+                      "bfloat16", gpu)
+    pos = torch.tensor([S - 1], dtype=torch.int32, device=gpu)
+    call = lambda: dec_ops.decode_attention_kvmajor(  # noqa: E731
+        q, k, v, pos, split_len=split_len)
+    call()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    out = call()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] - before == 1
+    assert out.dtype == torch.bfloat16
+    names = _device_kernels(call)
+    assert len(names) == 1 and "decode_kernel" in names[0], names
+
+
+@pytest.mark.cuda
+def test_decode_launcher_constants_match_the_library(gpu):
+    """``_lib`` holds the launcher's cluster, ring and group sizes against
+    the built library's ``decode_attention_config``."""
+    from repro_torch.kernels.decode_attention import decode_attention as k2
+    k2._lib()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [8, 1], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_ssd_kernel_takes_x_as_a_strided_bf16_slice(gpu, offset, bc_dtype):
+    """x as the model passes it: a bf16 slice of the convolution's output
+    (B, T, H * P + 2 N), at an offset that keeps the 16-byte rule (the
+    model's) and one that breaks it (read element by element)."""
+    case = (2, 256, 8, 64, 64, 128)
+    x, dt, A, Bm, Cm = ssd_inputs(case, bc_dtype, gpu, seed=3)
+    B, T, H, P = x.shape
+    wide = torch.zeros((B, T, H * P + 2 * 64 + 8), dtype=torch.bfloat16,
+                       device=gpu)
+    wide[..., offset:offset + H * P] = x.reshape(B, T, H * P)
+    xs = wide[..., offset:offset + H * P].unflatten(-1, (H, P))
+    y, state = ssd_ops.ssd_scan(xs, dt, A, Bm, Cm, chunk=128)
+    y_ref, s_ref = ssd_chunked(xs.float(), dt, A, Bm, Cm, 128)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_ref, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(state, s_ref, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_ssd_scan_launches_only_the_scan(gpu, x_dtype):
+    """ops.ssd_scan forms xdt and dA inside the kernel: a call runs the
+    scan's two kernels and no elementwise pass or copy."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as k4
+    x, dt, A, Bm, Cm = ssd_inputs((8, 512, 64, 64, 128, 256),
+                                  torch.bfloat16, gpu)
+    x = x.to(x_dtype)
+    call = lambda: ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=256)  # noqa
+    call()
+    names = _device_kernels(call)
+    assert len(names) == k4.KERNELS_PER_CALL == 2, names
+    assert all("ssd_" in n for n in names), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(2, 300, 8, 64, 128, 300),
+                                  (1, 700, 4, 32, 64, 350)], ids=str)
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_ssd_kernel_at_ragged_chunks(gpu, case, x_dtype):
+    """The chunks 300- and 700-token prompts give: not multiples of the
+    kernel's 64-row tile, so the last tile of each chunk is ragged."""
+    x, dt, A, Bm, Cm = ssd_inputs(case, torch.bfloat16, gpu, seed=4)
+    x = x.to(x_dtype)
+    y, state = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=case[-1])
+    y_ref, s_ref = ssd_chunked(x.float(), dt, A, Bm, Cm, case[-1])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_ref, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(state, s_ref, atol=2e-3, rtol=2e-3)

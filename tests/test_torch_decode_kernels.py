@@ -96,3 +96,57 @@ def test_decode_wrapper_matches_pallas_interpret():
         4, [(B, H, hd), (B, S, KV, hd), (B, S, KV, hd)], "float32")
     _close(dec_ops.decode_attention(qt, kt, vt, pos),
            jax_pallas_decode(qj, kj, vj, jnp.asarray(pos, jnp.int32)), 2e-5)
+
+
+def _source(name):
+    from pathlib import Path
+    return (Path(dec_ops.__file__).resolve().parents[1] / "csrc"
+            / name).read_text()
+
+
+def test_decode_launcher_constants_match_the_cuda_source():
+    """The cluster, ring and group sizes the launcher and the autotuner
+    price blocks by without a built library are the CUDA source's, and
+    the group sizes it rounds up to are the ones ``by_group`` launches.
+    On the card ``_lib`` holds them against the library too."""
+    import re
+
+    from repro_torch.kernels.decode_attention import decode_attention as k2
+    src = _source("decode_attention.cu")
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert int(consts["MAX_CLUSTER"]) == k2.MAX_CLUSTER == 16
+    assert int(consts["NSTAGE"]) == k2.NSTAGE
+    assert int(consts["GMAX"]) == k2.GMAX
+    rows = {int(g) for g in re.findall(r"if \(need <= (\d+)\) DECODE_GB", src)}
+    assert rows | {k2.GMAX} == {k2.group_rows(G) for G in range(1, 65)}
+    lanes = [int(n) for n in re.findall(r"DECODE_LAUNCH\((\d+), \d\);", src)]
+    assert lanes == [4, 8, 16, 32, 32]
+    assert [k2.tile_keys(2, hd) for hd in (8, 64, 128, 256)] == [64, 64, 32, 16]
+    assert [k2.tile_keys(4, hd) for hd in (8, 64, 128, 256)] == [64, 32, 16, 8]
+
+
+@pytest.mark.parametrize("BKV", [1, 8, 40, 64, 512])
+@pytest.mark.parametrize("S", [1, 64, 300, 544, 1024, 4096, 32768])
+def test_split_plan_never_exceeds_a_cluster(BKV, S):
+    """The default plan's splits are whole 64-key tiles, cover S, and never
+    number more than one cluster holds."""
+    from repro_torch.kernels.decode_attention import decode_attention as k2
+    split_len, n_split = k2.split_plan(BKV, S)
+    assert split_len % 64 == 0 and n_split == -(-S // split_len)
+    assert 1 <= n_split <= k2.MAX_CLUSTER
+    assert (n_split - 1) * split_len < S <= n_split * split_len
+
+
+@pytest.mark.parametrize("split_len", [64, 128, 192, 320, 512, 1024, 2048])
+def test_every_split_len_of_whole_tiles_is_accepted(split_len):
+    """Any multiple of 64 passes the wrapper, however many splits it gives
+    (the kernel's blocks walk the splits past a cluster in turn); a split
+    that is not whole tiles raises."""
+    B, S, H, KV, hd, pos = 2, 1024, 8, 2, 64, 700
+    (_, qt), (_, kt), (_, vt) = _inputs(
+        6, [(B, H, hd), (B, S, KV, hd), (B, S, KV, hd)], "float32")
+    out = dec_ops.decode_attention(qt, kt, vt, pos, split_len=split_len)
+    torch.testing.assert_close(out, decode_attention_ref(qt, kt, vt, pos),
+                               atol=0, rtol=0)
+    with pytest.raises(ValueError, match="split_len"):
+        dec_ops.decode_attention(qt, kt, vt, pos, split_len=split_len + 32)

@@ -119,3 +119,69 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="device"):
         ops.ssd_scan(x.to("meta"), dt.to("meta"), A.to("meta"),
                      Bm.to("meta"), Cm.to("meta"), chunk=64)
+
+
+def test_ssd_launcher_constants_match_the_cuda_source():
+    """The tile, the heads per output block and the launches per call the
+    launcher and the autotuner count by without a built library are the
+    CUDA source's.  On the card ``_lib`` holds them against the library
+    too."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels.ssd_scan import ssd_scan as k4
+    src = (Path(k4.__file__).resolve().parents[1] / "csrc"
+           / "ssd_scan.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert int(consts["TILE"]) == k4.TILE == 64
+    assert int(consts["HG"]) == k4.HEADS_PER_BLOCK
+    assert int(consts["KS"]) == k4.SLICE_ROWS
+    assert int(consts["STAGES1"]) == k4.SLICE_STAGES
+    assert len(re.findall(r"<<<", src)) == k4.KERNELS_PER_CALL == 2
+    assert re.search(r"out\[2\] = (\d+);", src).group(1) == "2"
+    # the Mamba2 shape's blocks fit a block's 227 KB, at the longest chunk
+    for size in (2, 4):
+        for chunk in (256, 1024):
+            assert k4.smem_bytes(size, size, 64, 128, chunk) <= 232_448
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("x_dtype", "x/dt/A dtype"), ("dt_dtype", "x/dt/A dtype"),
+    ("A_dtype", "x/dt/A dtype"), ("x_last", "contiguous"),
+    ("A_strided", "contiguous"), ("A_shape", "disagree"),
+], ids=str)
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_wrapper_checks_x_dt_and_a(bad, match, device):
+    """x in float32 or bf16 with a contiguous last dim, dt and A in float32,
+    A contiguous and (H,): what the kernel reads in place.  Checked before
+    any device is touched, on the CPU as on a meta tensor."""
+    x, dt, A, Bm, Cm = (t.to(device) for _, t in
+                        _inputs((1, 128, 2, 32, 16, 64)))
+    if bad == "x_dtype":
+        x = x.half()
+    elif bad == "dt_dtype":
+        dt = dt.double()
+    elif bad == "A_dtype":
+        A = A.bfloat16()
+    elif bad == "x_last":
+        x = x.transpose(-1, -2).contiguous().transpose(-1, -2)
+    elif bad == "A_strided":
+        A = torch.stack([A, A], dim=-1)[:, 0]
+    else:
+        A = A[:1]
+    with pytest.raises(ValueError, match=match):
+        ops.ssd_scan(x, dt, A, Bm, Cm, chunk=64)
+
+
+def test_wrapper_takes_x_as_a_strided_slice_on_the_cpu():
+    """x as the model passes it: a slice of the convolution's output, here
+    with a bf16 x; the same result as a contiguous copy."""
+    x, dt, A, Bm, Cm = (t for _, t in _inputs((2, 128, 4, 32, 16, 64)))
+    xb = x.bfloat16()
+    wide = torch.cat([xb.flatten(2), torch.zeros(2, 128, 16,
+                                                 dtype=torch.bfloat16)], -1)
+    view = wide[..., :128].unflatten(-1, (4, 32))
+    for got, want in zip(ops.ssd_scan(view, dt, A, Bm, Cm, chunk=64),
+                         ops.ssd_scan(xb.contiguous(), dt, A, Bm, Cm,
+                                      chunk=64)):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
