@@ -15,9 +15,14 @@ stale ``.profile_store/`` in the working directory changes nothing:
      of a 1,024-key cache, the flash kernel also over cases of its wgmma
      body (each tile, ragged edges, q_offset, window, cap, GQA groups 1-8)
      and a view that must take its CUDA-core body, each asserting which
-     body ran; then timed beside its plain version, one PyTorch library
-     call where there is one, and its bound (the SSD scan's also beside the
-     float32-CUDA-core bound of its first body).  Each time is taken twice:
+     body ran, the paged kernel also past a full cluster of splits, at G
+     48 and on a pool view off the 16-byte rule; then timed beside its
+     plain version, one PyTorch library call where there is one (for the
+     paged kernel, which no library call matches, the split-K decode
+     kernel at the same geometry, in turns), and its bound (the SSD scan's
+     also beside the float32-CUDA-core bound of its first body); the
+     paged kernel's split plan and the CUDA kernels of one traced call
+     printed.  Each time is taken twice:
      eager (20 calls between two CUDA events, the wrapper's host work
      included) and on the device alone (the same 20 calls captured once in
      a CUDA graph and replayed between two events);
@@ -31,8 +36,10 @@ stale ``.profile_store/`` in the working directory changes nothing:
      prefill and one bf16 decode step: the flash, decode and SSD-scan
      kernels' time and count (one decode kernel per attention layer, two
      SSD-scan kernels per Mamba block), and the device's idle share;
-  5. serving: RealExecutor + DNNScaler (hybrid, estimator seeded as
-     ``serve`` seeds it) + ServingEngine at full width, SmolLM-360M (flash
+  5. serving: RealExecutor + DNNScaler (``serve``'s default controller,
+     the paper's loop: the Profiler picks Batching or Multi-Tenancy and a
+     1-D scaler tunes it; estimator seeded as ``serve`` seeds it) +
+     ServingEngine at full width, SmolLM-360M (flash
      + decode attention) and then Mamba2-1.3B (SSD scan), each with zero
      bucket-cache misses after warm-up and its kernels' launches counted
      over the engine's run, every flash launch through the wgmma body;
@@ -185,6 +192,13 @@ PAGE_SIZE_CASES = [(2, 512, 8, 2, 64, psz, (512, 301), None, None)
 PAGED_SMOLLM = (8, 544, 15, 5, 64, 32, (544,) * 8, None, None)
 PAGED_RAGGED = (8, 1024, 8, 2, 64, 64, (1024, 700, 512, 301, 128, 37, 1, 0),
                 None, None)
+# the new body's own cases: more splits than a cluster holds (a 163,840-key
+# context in 32-key pages: 20 splits of a block's 256-page table), G 48 (six
+# query-row chunks), and a pool view off the 16-byte rule (the element-wise
+# copy)
+PAGED_WALK = (2, 163840, 8, 2, 64, 32, (163840, 70000), None, None)
+PAGED_G48 = (2, 1024, 48, 1, 64, 64, (1024, 333), 300, None)
+PAGED_VIEW = (3, 512, 6, 2, 64, 32, (512, 200, 0), None, 30.0)
 
 # the serving paths' shapes: 8 prompts of 512 tokens, 32 decode steps
 ARCH, BATCH, PROMPT, STEPS = "smollm_360m", 8, 512, 32
@@ -655,7 +669,10 @@ def _paged_inputs(gen, case, dtype, shuffle: bool) -> tuple:
 
 
 def _check_paged(gen, case, dtype, shuffle: bool = True,
-                 garbage: bool = False) -> float:
+                 garbage: bool = False, view: bool = False) -> float:
+    """K3 against its plain version at ``case``.  ``garbage``: pages past
+    each length hold 1e4 and their table entries 10,000; ``view``: the
+    pool is a view 2 elements into rows of hd + 2, off the 16-byte rule."""
     window, cap = case[-2:]
     q, kp, vp, lens, tbl = _paged_inputs(gen, case, dtype, shuffle)
     ref = paged_decode_attention_ref(q, kp, vp, lens, tbl, window=window,
@@ -669,6 +686,11 @@ def _check_paged(gen, case, dtype, shuffle: bool = True,
         kp = torch.where(bad[:, None, None, None], 1e4, kp).to(dtype)
         vp = torch.where(bad[:, None, None, None], 1e4, vp).to(dtype)
         tbl = torch.where(used, tbl, 10_000)
+    if view:
+        hd = kp.shape[-1]
+        kp, vp = (torch.cat([torch.zeros_like(x[..., :2]), x], -1)[..., 2:]
+                  for x in (kp, vp))
+        assert kp.data_ptr() % 16 and kp.stride(2) == hd + 2
     out = decode_ops.paged_decode_attention(q, kp, vp, lens, tbl,
                                             window=window, logit_cap=cap)
     torch.cuda.synchronize()      # a read out of range would fault here
@@ -680,17 +702,32 @@ def _check_paged(gen, case, dtype, shuffle: bool = True,
     return _maxerr(out, ref)
 
 
+def _kernels_per_call(fn) -> list:
+    """The names of the CUDA kernels one call of ``fn`` runs, from
+    torch.profiler's trace of the card."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 def _paged_timing(gen, case, dtype) -> tuple:
     """(kernel eager ms, kernel device ms, plain ms, bound ms, bound_by,
-    max |err|, live keys, bytes) at ``case``.
+    max |err|, live keys, bytes, the CUDA kernels of one traced call) at
+    ``case``.
     The bound counts the live keys' K and V, q and o, and the table
     entries of the live pages, each moved once."""
     B, S, H, KV, hd, psz, lens, _, _ = case
     q, kp, vp, lens_t, tbl = _paged_inputs(gen, case, dtype, True)
     err = _maxerr(decode_ops.paged_decode_attention(q, kp, vp, lens_t, tbl),
                   paged_decode_attention_ref(q, kp, vp, lens_t, tbl))
-    ms, dev = _ms(lambda: decode_ops.paged_decode_attention(q, kp, vp,
-                                                            lens_t, tbl))
+    call = lambda: decode_ops.paged_decode_attention(  # noqa: E731
+        q, kp, vp, lens_t, tbl)
+    ms, dev = _ms(call)
+    names = _kernels_per_call(call)
     plain = _time_ms(lambda: paged_decode_attention_ref(q, kp, vp, lens_t,
                                                         tbl))
     live = sum(lens)
@@ -699,15 +736,17 @@ def _paged_timing(gen, case, dtype) -> tuple:
     nbytes = size * (2 * live * KV * hd + 2 * B * H * hd) + 4 * (pages + B)
     peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
     bound, by = _bound(nbytes, (4 * live * H * hd, peak))
-    return ms, dev, plain, bound, by, err, live, nbytes
+    return ms, dev, plain, bound, by, err, live, nbytes, names
 
 
 def phase_paged() -> dict:
     """K3 against its plain version: the reference's PAGED_CASES (pages
     shuffled through the pool), each page size (pages in order), the
-    garbage-page/garbage-table case, and the two timing shapes, in both
-    dtypes; then timed at SmolLM's decode geometry (bf16) and the ragged
-    shape (float32)."""
+    garbage-page/garbage-table case, the two timing shapes, and the new
+    body's own cases (splits past a cluster, G 48, a pool off the 16-byte
+    rule), in both dtypes; then timed at SmolLM's decode geometry (bf16)
+    beside K2 at the same geometry, in turns, and at the ragged shape
+    (float32), with the split plan and the CUDA kernels of one call."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(13)
     worst = {}
@@ -718,17 +757,25 @@ def phase_paged() -> dict:
                 + [_check_paged(gen, (2, 256, 4, 2, 64, 64, (70, 128), None,
                                       None), dtype, False, garbage=True)]
                 + [_check_paged(gen, c, dtype)
-                   for c in (PAGED_SMOLLM, PAGED_RAGGED)])
+                   for c in (PAGED_SMOLLM, PAGED_RAGGED)]
+                + [_check_paged(gen, PAGED_WALK, dtype),
+                   _check_paged(gen, PAGED_G48, dtype),
+                   _check_paged(gen, PAGED_VIEW, dtype, view=True)])
         worst[dtype] = (max(errs), len(errs))
     (f_abs, n), (b_abs, _) = worst[torch.float32], worst[torch.bfloat16]
     print(f"[kernels] paged_decode_attention: max |kernel - plain| over {n} "
           f"cases (garbage pages and a 10,000-entry table included, no "
-          f"fault at the synchronise): float32 {f_abs:.3e} (tol 2e-5), "
-          f"bfloat16 {b_abs:.3e} (tol 2e-2); freed slots exactly 0")
+          f"fault at the synchronise; 20 splits walked by clusters of 16; "
+          f"G 48; a pool view off the 16-byte rule): float32 {f_abs:.3e} "
+          f"(tol 2e-5), bfloat16 {b_abs:.3e} (tol 2e-2); freed slots "
+          f"exactly 0")
     rows = {}
     for name, case, dtype in (("smollm", PAGED_SMOLLM, torch.bfloat16),
                               ("ragged", PAGED_RAGGED, torch.float32)):
-        ms, dev, plain, bound, by, err, live, nbytes = _paged_timing(
+        B, S, H, KV, hd, psz = case[:6]
+        split_len, n_split = k3.split_plan(B * KV, S // psz, psz)
+        smem = k3.smem_bytes(dtype.itemsize, hd, H // KV)
+        ms, dev, plain, bound, by, err, live, nbytes, names = _paged_timing(
             gen, case, dtype)
         rows[name] = (ms, dev, plain, bound, by, err)
         print(f"[kernels] paged_decode_attention at (B, S, H, KV, hd, psz) "
@@ -737,6 +784,33 @@ def phase_paged() -> dict:
               f"bound {bound:.4f} ms ({by}: "
               f"{live} live keys, {nbytes / 1e6:.3f} MB); no single "
               f"PyTorch call reads a block table")
+        print(f"[kernels] paged_decode_attention at {case[:6]}: split plan "
+              f"{n_split} splits of {split_len} keys, clusters of "
+              f"{min(n_split, k3.MAX_CLUSTER)}, "
+              f"{k3.blocks(B * KV, H // KV, n_split)} blocks of "
+              f"{smem} B of shared memory; CUDA kernels in one traced "
+              f"call: {len(names)} {names}")
+        assert len(names) == 1 and "paged_kernel" in names[0], names
+    # K2 at the same geometry, the yardstick, on the same keys gathered into
+    # its dense (B, KV, S, hd) cache, in turns with K3: K3, K2, K2, K3, each
+    # on the device alone
+    B, S, H, KV, hd = PAGED_SMOLLM[:5]
+    q, kp, vp, lens, tbl = _paged_inputs(gen, PAGED_SMOLLM, torch.bfloat16,
+                                         True)
+    k, v = (x[tbl.long()].reshape(B, S, KV, hd).transpose(1, 2).contiguous()
+            for x in (kp, vp))
+    pos = torch.tensor([S - 1], dtype=torch.int32, device=DEV)
+    turns = {"k3": [], "k2": []}
+    for name in ("k3", "k2", "k2", "k3"):
+        turns[name].append(_graph_ms(
+            (lambda: decode_ops.paged_decode_attention(q, kp, vp, lens, tbl))
+            if name == "k3" else
+            (lambda: decode_ops.decode_attention_kvmajor(q, k, v, pos))))
+    print(f"[kernels] at SmolLM's decode geometry (B 8, S 544, H 15, KV 5, "
+          f"hd 64) bf16, device ms in turns K3, K2, K2, K3: K3 "
+          + " / ".join(f"{x:.4f}" for x in turns["k3"]) + "; K2 "
+          + " / ".join(f"{x:.4f}" for x in turns["k2"])
+          + f"; K3 / K2 {sum(turns['k3']) / sum(turns['k2']):.2f}x")
     ms, dev, plain, bound, by, err = rows["smollm"]
     return dict(name="paged_decode_attention_fwd", route="cuda",
                 source="src/repro_torch/kernels/csrc/"
@@ -745,7 +819,8 @@ def phase_paged() -> dict:
                          "paged_decode_attention.py:103",
                 max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain,
                 bound_ms=bound, bound_by=by, library_ms=None,
-                library_device_ms=None)
+                library_device_ms=None,
+                k2_device_ms_same_geometry=sum(turns["k2"]) / 2)
 
 
 def _bound_used(got, want, atol, rtol) -> float:
@@ -962,7 +1037,8 @@ def phase_model() -> None:
 
 
 def _serve(arch: str, max_bs: int, max_mtl: int, steps: int) -> dict:
-    """A user's serving run.  Kernel launch counts are read over exactly
+    """A user's serving run, under ``serve``'s default controller
+    (DNNScaler).  Kernel launch counts are read over exactly
     the engine's run, after the buckets' warm-up, the SLO's calibration and
     the profiler's probes."""
     t0 = time.perf_counter()
@@ -975,7 +1051,7 @@ def _serve(arch: str, max_bs: int, max_mtl: int, steps: int) -> dict:
     ex.cache_stats.reset_counters()
     base = ex.mean_latency(1, 1)
     slo = 4 * base
-    ctrl = make_controller("hybrid", ex, slo, m=8, n=4, max_bs=max_bs,
+    ctrl = make_controller("dnnscaler", ex, slo, m=8, n=4, max_bs=max_bs,
                            max_mtl=max_mtl)
     eng = ServingEngine(ex, slo, instance_launch_s=0.2)
     torch.cuda.synchronize()
@@ -995,7 +1071,8 @@ def _serve(arch: str, max_bs: int, max_mtl: int, steps: int) -> dict:
           f"{STEPS} decode steps per request, buckets up to "
           f"{max_bs * max_mtl}: warmed {warm_misses} buckets in "
           f"{warm_s:.1f}s; base {base * 1e3:.1f} ms -> SLO {slo * 1e3:.1f} ms")
-    print(f"[serving] approach={ctrl.approach} profiler picked "
+    print(f"[serving] controller dnnscaler: approach={ctrl.approach} "
+          f"profiler picked "
           f"{ctrl.profile.approach}; steady(bs={act.bs}, mtl={act.mtl}); "
           f"throughput {s['throughput']:.2f} req/s; p95 "
           f"{s['p95_s'] * 1e3:.1f} ms; attainment {s['slo_attainment']:.3f}; "

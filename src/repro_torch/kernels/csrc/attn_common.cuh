@@ -76,31 +76,4 @@ __device__ __forceinline__ void row_scores(const float* qrow, const float* Ks, i
   s1 = a1;
 }
 
-// Merge the splits of one (batch x kv-head) row: out = sum_s acc_s e^(m_s - M)
-// / max(sum_s l_s e^(m_s - M), 1e-30).  A split with no key to attend
-// carries m = NEG_INF, l = 0 and acc = 0 and adds nothing; if every split
-// is empty the row is exactly 0 (0 / 1e-30), never 0 / 0.
-template <typename T>
-__global__ void merge_splits_kernel(const float* __restrict__ part_m,
-                                    const float* __restrict__ part_l,
-                                    const float* __restrict__ part_acc, T* __restrict__ o,
-                                    int G, int hd, int n_split) {
-  const int bkv = blockIdx.x;
-  const float* pm = part_m + (long long)bkv * n_split * G;
-  const float* pl = part_l + (long long)bkv * n_split * G;
-  const float* pa = part_acc + (long long)bkv * n_split * G * hd;
-  for (int idx = threadIdx.x; idx < G * hd; idx += blockDim.x) {
-    const int g = idx / hd;
-    float M = NEG_INF;
-    for (int s = 0; s < n_split; ++s) M = fmaxf(M, pm[s * G + g]);
-    float L = 0.f, A = 0.f;
-    for (int s = 0; s < n_split; ++s) {
-      const float w = expf(pm[s * G + g] - M);
-      L = fmaf(pl[s * G + g], w, L);
-      A = fmaf(pa[(long long)s * G * hd + idx], w, A);
-    }
-    o[(long long)bkv * G * hd + idx] = from_f<T>(A / fmaxf(L, 1e-30f));
-  }
-}
-
 }  // namespace attn

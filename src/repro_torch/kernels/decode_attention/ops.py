@@ -6,8 +6,9 @@ the split-K kernel through strides, without a transpose.
 ``paged_decode_attention`` serves ragged slots from a shared page pool
 through a block table (the token engine's layout) with the paged kernel,
 which reads the pool in place.  A CPU tensor goes to the plain version
-(``ref``); a CUDA tensor launches the Hopper kernel.  Anything a kernel
-does not take raises; nothing falls back.  ``pos`` and the lengths may be
+(``ref``), which takes what the reference's wrapper takes; a CUDA tensor
+launches the Hopper kernel, and anything the kernel does not take raises
+on it.  Nothing falls back.  ``pos`` and the lengths may be
 host values or device tensors and are never read back.
 
 ``split_len=None`` consults the autotune cache (``repro_torch.perf.
@@ -35,6 +36,10 @@ DEFAULT_PAGE_SIZE = autotune.DEFAULTS["paged_decode_attention"]["page_size"]
 
 def _check(q, k, v, kv_axis: int, what: str = "decode_attention",
            paged: bool = False) -> None:
+    """The shapes and devices every call needs; on a tensor that is not on
+    the CPU also the kernel's own limits (dtype, head_dim, layout).  A CPU
+    tensor goes to the plain version, which takes what the reference's
+    wrapper takes."""
     if q.ndim != 3 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"{what}: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -43,6 +48,10 @@ def _check(q, k, v, kv_axis: int, what: str = "decode_attention",
     if (not paged and k.shape[0] != B) or k.shape[3] != hd or H % KV:
         raise ValueError(f"{what}: q and the cache disagree on batch, "
                          "head_dim or GQA grouping")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"{what}: tensors on different devices")
+    if q.device.type == "cpu":
+        return
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _kernel._DTYPES:
         raise ValueError(f"{what}: dtype {q.dtype}/{k.dtype}/{v.dtype} "
                          "(float32 or bfloat16, all alike)")
@@ -52,8 +61,6 @@ def _check(q, k, v, kv_axis: int, what: str = "decode_attention",
     if not q.is_contiguous() or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError(f"{what}: q must be contiguous and the cache's "
                          "last dim contiguous")
-    if not (q.device == k.device == v.device):
-        raise ValueError(f"{what}: tensors on different devices")
 
 
 def _resolve_split_len(split_len: Optional[int], q, BKV: int, G: int,

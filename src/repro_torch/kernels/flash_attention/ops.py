@@ -1,9 +1,9 @@
 """Public wrapper of the flash-attention kernel, in the model's layout.
 
-A CPU tensor goes to the plain version (``ref.attention_ref``); a CUDA
-tensor launches the Hopper kernel.  Anything the kernel does not take
-(dtype, head_dim, layout, group size, device, tile) raises; nothing falls
-back.
+A CPU tensor goes to the plain version (``ref.attention_ref``), which
+takes what the reference's wrapper takes, any tile included; a CUDA tensor
+launches the Hopper kernel, and anything the kernel does not take (dtype,
+head_dim, layout, device, tile) raises on it.  Nothing falls back.
 
 Tiles: explicit ``block_q`` / ``block_k`` keywords win; on a CUDA tensor,
 those left None come from the autotune cache (``repro_torch.perf.
@@ -28,6 +28,10 @@ from repro_torch.perf import autotune
 
 
 def _check(q, k, v) -> None:
+    """The shapes and devices every call needs; on a tensor that is not on
+    the CPU also the kernel's own limits (dtype, head_dim, layout).  A CPU
+    tensor goes to the plain version, which takes what the reference's
+    wrapper takes."""
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -35,6 +39,10 @@ def _check(q, k, v) -> None:
     if k.shape[0] != B or k.shape[3] != hd or H % k.shape[2]:
         raise ValueError("flash_attention: q and k/v disagree on batch, "
                          "head_dim or GQA grouping")
+    if not (q.device == k.device == v.device):
+        raise ValueError("flash_attention: tensors on different devices")
+    if q.device.type == "cpu":
+        return
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _kernel._DTYPES:
         raise ValueError(f"flash_attention: dtype {q.dtype}/{k.dtype}/"
                          f"{v.dtype} (float32 or bfloat16, all alike)")
@@ -43,8 +51,6 @@ def _check(q, k, v) -> None:
                          "at most 256)")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: last dim must be contiguous")
-    if not (q.device == k.device == v.device):
-        raise ValueError("flash_attention: tensors on different devices")
 
 
 def check_tile(block_q: Optional[int], block_k: Optional[int],
@@ -90,11 +96,10 @@ def flash_attention(
     block_k: Optional[int] = None,
 ) -> torch.Tensor:
     _check(q, k, v)
-    G = q.shape[2] // k.shape[2]
-    check_tile(block_q, block_k, G)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              logit_cap=logit_cap, q_offset=q_offset)
+    check_tile(block_q, block_k, q.shape[2] // k.shape[2])
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     tuned = (block_q is None) | (block_k is None) << 1   # sides the cache fills

@@ -6,9 +6,10 @@ signature and results.  The reference forms ``xdt = x * dt`` and
 ``pallas_call``; here the Hopper kernel reads x, dt and A in the model's
 layout through their strides and forms both itself, so a call launches
 the scan's kernels and no elementwise pass.  A CPU tensor goes to the plain
-chunked version (``models.mamba.ssd_chunked``, in float32); a CUDA tensor
-launches the kernel.  Anything the kernel does not take (dtype, head or
-state size, chunk, layout, device) raises; nothing falls back.
+chunked version (``models.mamba.ssd_chunked``, in float32), which takes
+what the reference's wrapper takes; a CUDA tensor launches the kernel, and
+anything the kernel does not take (dtype, head or state size, chunk,
+layout, device) raises on it.  Nothing falls back.
 
 ``chunk=None`` consults the autotune cache (``repro_torch.perf.autotune``)
 for the best-known chunk of this shape class, dtype and device, else takes
@@ -37,6 +38,10 @@ def _largest_dividing_chunk(T: int, chunk: int) -> int:
 
 
 def _check(x, dt, A, Bm, Cm, chunk: int) -> None:
+    """The shapes, chunk and devices every call needs, as the reference's
+    wrapper needs them; on a tensor that is not on the CPU also the
+    kernel's own limits (dtypes, head and state sizes, longest chunk,
+    layout).  A CPU tensor goes to the plain version."""
     if x.ndim != 4 or Bm.ndim != 3 or Bm.shape != Cm.shape:
         raise ValueError(f"ssd_scan: shapes {tuple(x.shape)}, "
                          f"{tuple(Bm.shape)}, {tuple(Cm.shape)}")
@@ -46,6 +51,12 @@ def _check(x, dt, A, Bm, Cm, chunk: int) -> None:
             or tuple(Bm.shape[:2]) != (B, T):
         raise ValueError("ssd_scan: x, dt, A, Bm and Cm disagree on batch, "
                          "time or heads")
+    if chunk < 1 or T % chunk:
+        raise ValueError(f"ssd_scan: chunk {chunk} must divide T={T}")
+    if len({t.device for t in (x, dt, A, Bm, Cm)}) != 1:
+        raise ValueError("ssd_scan: tensors on different devices")
+    if x.device.type == "cpu":
+        return
     if x.dtype not in _kernel._DTYPES or dt.dtype != torch.float32 \
             or A.dtype != torch.float32:
         raise ValueError(f"ssd_scan: x/dt/A dtype {x.dtype}/{dt.dtype}/"
@@ -58,15 +69,13 @@ def _check(x, dt, A, Bm, Cm, chunk: int) -> None:
         raise ValueError(f"ssd_scan: head_dim {P} / state size {N} (head_dim "
                          f"in {_kernel.HEAD_DIMS}, state in "
                          f"{_kernel.STATE_SIZES})")
-    if not 1 <= chunk <= _kernel.MAX_CHUNK or T % chunk:
-        raise ValueError(f"ssd_scan: chunk {chunk} must divide T={T} and be "
-                         f"at most {_kernel.MAX_CHUNK}")
+    if chunk > _kernel.MAX_CHUNK:
+        raise ValueError(f"ssd_scan: chunk {chunk} must be at most "
+                         f"{_kernel.MAX_CHUNK}")
     if Bm.stride(-1) != 1 or Cm.stride(-1) != 1 or x.stride(-1) != 1 \
             or not A.is_contiguous():
         raise ValueError("ssd_scan: x, Bm and Cm need a contiguous last dim "
                          "and A must be contiguous")
-    if len({t.device for t in (x, dt, A, Bm, Cm)}) != 1:
-        raise ValueError("ssd_scan: tensors on different devices")
 
 
 def ssd_scan(

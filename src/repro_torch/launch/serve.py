@@ -101,7 +101,7 @@ def main() -> None:
     ap.add_argument("--real", action="store_true",
                     help="wall-clock executor (the only mode ported so far)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    ap.add_argument("--controller", default="hybrid",
+    ap.add_argument("--controller", default="dnnscaler",
                     choices=["dnnscaler", "hybrid", "clipper", "static"])
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--new-tokens", type=int, default=32)

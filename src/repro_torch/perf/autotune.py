@@ -70,7 +70,6 @@ from repro_torch.perf.roofline import (BF16_FLOPS, F32_FLOPS, HBM_BPS,
 
 PRUNE_RATIO = 3.0               # keep candidates within this factor of the
                                 # best modeled bound time
-_BK = 64                        # keys per shared-memory tile (attention)
 
 # The wrappers' defaults on an empty cache, always kept in the candidate
 # set so that tuning can only improve on them.  ``split_len: None`` is
@@ -238,13 +237,6 @@ def _bound(flops: float, peak: float, nbytes: float, blocks: int) -> float:
     return max(flops / peak, nbytes / HBM_BPS) / fill
 
 
-def _paged_smem(G: int, hd: int) -> int:
-    """The paged kernel's block: float32 K/V tiles, G rows of q and
-    accumulators, the running maxima and sums, the table entries."""
-    return 16 * _BK + 4 * (2 * G * hd + 2 * G + _BK * (hd + 1) + _BK * hd
-                           + 4 * _BK)
-
-
 def _flash_candidates(cls: dict, on_card: bool,
                       dtype: str = "float32") -> list:
     if _k1_wgmma(cls, dtype, on_card):
@@ -311,12 +303,12 @@ def _paged_model(cls: dict, cand: dict, sz: int,
     ns = max(S // psz, 1)
     _, n_split = _k3.split_plan(BKV, ns, psz)
     keys = ns * psz
-    # the live pages, q and o once, the block table, the partials
-    nbytes = BKV * (sz * (2 * keys * hd + 2 * G * hd) + 4 * ns
-                    + 8 * n_split * G * (hd + 2))
+    # one launch: the live pages, q and o once, and the block table; the
+    # splits merge in shared memory, so no partials move
+    nbytes = BKV * (sz * (2 * keys * hd + 2 * G * hd) + 4 * ns)
     flops = 4.0 * BKV * G * keys * hd
-    return (_bound(flops, F32_FLOPS, nbytes, BKV * n_split),
-            _paged_smem(G, hd))
+    return (_bound(flops, F32_FLOPS, nbytes, _k3.blocks(BKV, G, n_split)),
+            _k3.smem_bytes(sz, hd, G))
 
 
 def _ssd_candidates(cls: dict, on_card: bool,

@@ -1,7 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions on the GPU, over
 the reference's case lists: attention (flash, split-K decode, paged
 decode) at 2e-5 in float32 and 2e-2 in bfloat16, the flash kernel's wgmma
-body also over its own cases, each asserting which body ran; the SSD scan
+body also over its own cases, each asserting which body ran, and the two
+decode kernels at G 48, past a full cluster of splits and as one launch
+that allocates only its output (the paged one also on a pool view off the
+16-byte rule); the SSD scan
 at the reference's 2e-3, with float32 or bfloat16 B/C, over its case list
 and the Mamba2 and Zamba2 serving shapes.  The autotuner on the card times
 the flash kernel at each wgmma tile and the paged kernel at every page
@@ -682,3 +685,94 @@ def test_ssd_kernel_at_ragged_chunks(gpu, case, x_dtype):
     torch.cuda.synchronize()
     torch.testing.assert_close(y, y_ref, atol=2e-3, rtol=2e-3)
     torch.testing.assert_close(state, s_ref, atol=2e-3, rtol=2e-3)
+
+
+# two slots of a 163,840-key context in 32-key pages: 5,120 table entries
+# a slot, so the plan's splits of 256 pages (a block's table) number 20,
+# past a cluster of 16
+PAGED_LONG = (2, 163840, 8, 2, 64, 32, (163840, 70000), None, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", [
+    (2, 2048, 8, 2, 64, 32, (2048, 700), None, None), PAGED_LONG,
+    PAGED_LONG[:7] + (300, None)],
+    ids=["16 splits", "20 splits", "20 splits, window"])
+def test_paged_kernel_at_a_full_cluster_and_past_it(gpu, dtype, case):
+    """16 splits fill the largest cluster; a table longer than 16 splits of
+    a block's 256 pages has each block walk several splits in turn,
+    reading each split's table entries as it enters it."""
+    B, S, H, KV, hd, psz = case[:6]
+    _, n_split = paged_kernel.split_plan(B * KV, S // psz, psz)
+    assert n_split == (16 if S == 2048 else 20)
+    window = case[7]
+    q, kp, vp, lens, tbl = paged_inputs(case, dtype, gpu)
+    out = dec_ops.paged_decode_attention(q, kp * 4, vp, lens, tbl,
+                                         window=window)
+    ref = paged_decode_attention_ref(q, kp * 4, vp, lens, tbl, window=window)
+    torch.cuda.synchronize()
+    tol = DTYPES[dtype][1]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", [64, 128])
+def test_paged_kernel_at_group_48(gpu, dtype, hd):
+    """G 48 (an MQA model): the group is cut into six blocks of 8 rows."""
+    case = (2, 1024, 48, 1, hd, 64, (1024, 333), 300, None)
+    q, kp, vp, lens, tbl = paged_inputs(case, dtype, gpu)
+    out = dec_ops.paged_decode_attention(q, kp * 4, vp, lens, tbl, window=300)
+    ref = paged_decode_attention_ref(q, kp * 4, vp, lens, tbl, window=300)
+    torch.cuda.synchronize()
+    tol = DTYPES[dtype][1]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("broken", ["pointer", "strides"])
+def test_paged_kernel_takes_a_pool_off_the_16_byte_rule(gpu, dtype, broken):
+    """A pool view whose pointer sits 2 elements into rows of hd + 2, or
+    whose rows are hd + 2 elements apart: no 16-byte copy can read it, so
+    the kernel copies it element by element into its ring."""
+    case = (3, 512, 6, 2, 64, 32, (512, 200, 0), None, 30.0)
+    q, kp, vp, lens, tbl = paged_inputs(case, dtype, gpu)
+    lo, hd = (2 if broken == "pointer" else 0), kp.shape[-1]
+    views = []
+    for x in (kp, vp):
+        full = torch.zeros(*x.shape[:-1], hd + 2, dtype=x.dtype, device=gpu)
+        full[..., lo:lo + hd] = x
+        views.append(full[..., lo:lo + hd])
+    before = paged_kernel.LAUNCHES
+    out = dec_ops.paged_decode_attention(q, *views, lens, tbl, logit_cap=30.0)
+    ref = paged_decode_attention_ref(q, kp, vp, lens, tbl, logit_cap=30.0)
+    torch.cuda.synchronize()
+    assert paged_kernel.LAUNCHES == before + 1
+    tol = DTYPES[dtype][1]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    assert (out[lens == 0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [PAGED_TIMING_CASES[0], PAGED_LONG],
+                         ids=["5 splits", "20 splits walked"])
+def test_paged_is_one_launch_and_allocates_only_its_output(gpu, case):
+    """One CUDA kernel per call, and the one allocation is the output: the
+    splits merge in the cluster's shared memory, not in float32 scratch,
+    and the lengths and the table are read where they lie."""
+    q, kp, vp, lens, tbl = paged_inputs(case, "bfloat16", gpu)
+    call = lambda: dec_ops.paged_decode_attention(  # noqa: E731
+        q, kp, vp, lens, tbl)
+    call()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    out = call()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] - before == 1
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(
+        out.float(), paged_decode_attention_ref(q, kp, vp, lens, tbl).float(),
+        atol=2e-2, rtol=2e-2)
+    names = _device_kernels(call)
+    assert len(names) == 1 and "paged_kernel" in names[0], names

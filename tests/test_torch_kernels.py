@@ -96,6 +96,10 @@ def test_cpu_tensors_take_the_plain_version():
 @pytest.mark.parametrize("bad", ["head_dim", "dtype", "mixed_dtype",
                                  "grouping", "device"])
 def test_unsupported_inputs_raise(bad):
+    """What the kernels do not take raises on a tensor off the CPU (a meta
+    tensor here: checked before any device is touched); a grouping no
+    version can take raises on the CPU too.  On the CPU the kernels' own
+    limits do not apply (test_torch_cpu_wrappers.py)."""
     B, T, H, KV, hd = 1, 16, 4, 2, 32
     q = torch.zeros(B, T, H, hd)
     k = torch.zeros(B, T, KV, hd)
@@ -108,7 +112,7 @@ def test_unsupported_inputs_raise(bad):
         k = k.bfloat16()
     elif bad == "grouping":
         q = torch.zeros(B, T, 3, hd)
-    else:
+    if bad != "grouping":
         q, k, v = (x.to("meta") for x in (q, k, v))
     with pytest.raises(ValueError):
         flash_ops.flash_attention(q, k, v)
@@ -128,17 +132,20 @@ TILES_REFUSED = [(32, 64), (64, 32), (256, 128), (96, None), (None, 21),
 
 @pytest.mark.parametrize("tile", TILES_TAKEN + TILES_REFUSED, ids=str)
 def test_flash_wrapper_validates_the_tile(tile):
-    """A tile the kernel has is taken (on the CPU the plain version runs,
-    whatever the tile); any other raises before anything runs."""
+    """Off the CPU a tile the kernel has is taken and any other raises
+    before anything runs (a meta tensor, which then finds no kernel); on
+    the CPU the plain version runs whatever the tile, as the reference's
+    wrapper takes any tile."""
     (_, qt), (_, kt), (_, vt) = _inputs(
         6, [(1, 40, 6, 64), (1, 40, 2, 64), (1, 40, 2, 64)], "bfloat16")
-    call = lambda: flash_ops.flash_attention(  # noqa: E731
-        qt, kt, vt, block_q=tile[0], block_k=tile[1])
-    if tile in TILES_REFUSED:
-        with pytest.raises(ValueError, match="tile"):
-            call()
-    else:
-        assert torch.equal(call(), attention_ref(qt, kt, vt))
+    out = flash_ops.flash_attention(qt, kt, vt, block_q=tile[0],
+                                    block_k=tile[1])
+    assert torch.equal(out, attention_ref(qt, kt, vt))
+    qm, km, vm = (x.to("meta") for x in (qt, kt, vt))
+    match = "tile" if tile in TILES_REFUSED else "no kernel for device meta"
+    with pytest.raises(ValueError, match=match):
+        flash_ops.flash_attention(qm, km, vm, block_q=tile[0],
+                                  block_k=tile[1])
 
 
 def test_flash_launcher_constants_match_the_cuda_source():

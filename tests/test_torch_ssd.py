@@ -104,21 +104,25 @@ def test_default_chunk_matches_reference(T):
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
+    """Off the CPU (a meta tensor: checked before any device is touched)
+    the kernel's limits raise; a chunk that does not divide T and shapes
+    that disagree raise on the CPU too, as in the reference."""
     x, dt, A, Bm, Cm = (t for _, t in _inputs((1, 128, 2, 32, 16, 64)))
+    xm, dtm, Am, Bmm, Cmm = (t.to("meta") for t in (x, dt, A, Bm, Cm))
     with pytest.raises(ValueError, match="dtype"):
-        ops.ssd_scan(x, dt, A, Bm.half(), Cm.half(), chunk=64)
+        ops.ssd_scan(xm, dtm, Am, Bmm.half(), Cmm.half(), chunk=64)
     with pytest.raises(ValueError, match="chunk"):
         ops.ssd_scan(x, dt, A, Bm, Cm, chunk=48)
     with pytest.raises(ValueError, match="head_dim"):
-        ops.ssd_scan(x[..., :16], dt, A, Bm, Cm, chunk=64)
+        ops.ssd_scan(xm[..., :16], dtm, Am, Bmm, Cmm, chunk=64)
     with pytest.raises(ValueError, match="disagree"):
         ops.ssd_scan(x, dt[:, :64], A, Bm, Cm, chunk=64)
     with pytest.raises(ValueError, match="contiguous"):
-        ops.ssd_scan(x, dt, A, Bm.transpose(1, 2).contiguous().transpose(1, 2),
-                     Cm, chunk=64)
+        ops.ssd_scan(xm, dtm, Am,
+                     Bmm.transpose(1, 2).contiguous().transpose(1, 2), Cmm,
+                     chunk=64)
     with pytest.raises(ValueError, match="device"):
-        ops.ssd_scan(x.to("meta"), dt.to("meta"), A.to("meta"),
-                     Bm.to("meta"), Cm.to("meta"), chunk=64)
+        ops.ssd_scan(xm, dtm, Am, Bmm, Cmm, chunk=64)
 
 
 def test_ssd_launcher_constants_match_the_cuda_source():
@@ -152,9 +156,11 @@ def test_ssd_launcher_constants_match_the_cuda_source():
 ], ids=str)
 @pytest.mark.parametrize("device", ["cpu", "meta"])
 def test_wrapper_checks_x_dt_and_a(bad, match, device):
-    """x in float32 or bf16 with a contiguous last dim, dt and A in float32,
-    A contiguous and (H,): what the kernel reads in place.  Checked before
-    any device is touched, on the CPU as on a meta tensor."""
+    """Off the CPU: x in float32 or bf16 with a contiguous last dim, dt and
+    A in float32, A contiguous and (H,), what the kernel reads in place;
+    checked before any device is touched (a meta tensor).  On the CPU only
+    A's shape is checked, as the reference takes the rest: the plain
+    version gives what it gives on float32 contiguous copies."""
     x, dt, A, Bm, Cm = (t.to(device) for _, t in
                         _inputs((1, 128, 2, 32, 16, 64)))
     if bad == "x_dtype":
@@ -169,8 +175,15 @@ def test_wrapper_checks_x_dt_and_a(bad, match, device):
         A = torch.stack([A, A], dim=-1)[:, 0]
     else:
         A = A[:1]
-    with pytest.raises(ValueError, match=match):
-        ops.ssd_scan(x, dt, A, Bm, Cm, chunk=64)
+    if device == "meta" or bad == "A_shape":
+        with pytest.raises(ValueError, match=match):
+            ops.ssd_scan(x, dt, A, Bm, Cm, chunk=64)
+        return
+    y, s = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=64)
+    yr, sr = ops.ssd_scan(*(t.float().contiguous() for t in (x, dt, A)),
+                          Bm, Cm, chunk=64)
+    torch.testing.assert_close(y, yr, atol=0, rtol=0)
+    torch.testing.assert_close(s, sr, atol=0, rtol=0)
 
 
 def test_wrapper_takes_x_as_a_strided_slice_on_the_cpu():

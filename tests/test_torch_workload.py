@@ -87,3 +87,34 @@ def test_seeded_serving_loop_bit_identical(case):
 def test_long_prefill_trace_names_the_unported_token_engine():
     with pytest.raises(NotImplementedError, match="token engine"):
         port_wl.long_prefill_trace(4, seed=0)
+
+
+class _Parsed(Exception):
+    """Raised in place of parsing, carrying the parser ``main`` built."""
+
+
+def _parser_of(main, monkeypatch):
+    """The argparse parser a launcher's ``main`` builds, taken at its
+    ``parse_args`` call, before anything is served."""
+    import argparse
+
+    def grab(self, *args, **kwargs):
+        raise _Parsed(self)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", grab)
+    with pytest.raises(_Parsed) as got:
+        main()
+    return got.value.args[0]
+
+
+def test_serve_defaults_to_the_reference_controller(monkeypatch):
+    """``serve`` with no ``--controller`` runs the paper's loop (the
+    Profiler picks Batching or Multi-Tenancy, then one 1-D scaler), as the
+    reference's does, and offers the same controllers."""
+    ref = _parser_of(ref_serve.main, monkeypatch)
+    port = _parser_of(port_serve.main, monkeypatch)
+    assert port.get_default("controller") == ref.get_default("controller") \
+        == "dnnscaler"
+    choices = {p: next(a.choices for a in p._actions
+                       if a.dest == "controller") for p in (ref, port)}
+    assert choices[port] == choices[ref]
