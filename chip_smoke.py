@@ -36,14 +36,26 @@ stale ``.profile_store/`` in the working directory changes nothing:
      prefill and one bf16 decode step: the flash, decode and SSD-scan
      kernels' time and count (one decode kernel per attention layer, two
      SSD-scan kernels per Mamba block), and the device's idle share;
-  5. serving: RealExecutor + DNNScaler (``serve``'s default controller,
+  5. graphs: the same three models (bf16, 8 x 512 + 32 steps) through
+     ``serve``'s executor, which captures each batch bucket's request
+     (``api.generate``) once in a CUDA graph: the replayed tokens equal
+     the eager path's on the same batch; one replayed and one eager
+     request on the host clock, in turns; one replay under
+     ``torch.profiler``: its CUDA kernels counted by name (one flash per
+     attention layer, one decode per attention layer and step, two
+     SSD-scan per Mamba block) against the launches the wrappers recorded
+     in the capture, and the device's idle share;
+  6. serving: RealExecutor + DNNScaler (``serve``'s default controller,
      the paper's loop: the Profiler picks Batching or Multi-Tenancy and a
      1-D scaler tunes it; estimator seeded as ``serve`` seeds it) +
      ServingEngine at full width, SmolLM-360M (flash
-     + decode attention) and then Mamba2-1.3B (SSD scan), each with zero
-     bucket-cache misses after warm-up and its kernels' launches counted
-     over the engine's run, every flash launch through the wgmma body;
-  6. autotune: ``serve --autotune``'s tuning of the serving shape classes
+     + decode attention) and then Mamba2-1.3B (SSD scan), each bucket
+     captured in a CUDA graph at warm-up and replayed by every step, with
+     zero bucket-cache misses and stale hits after warm-up and its
+     kernels' launches over the engine's run counted from the replays
+     (each bucket's launches recorded in its capture, times its
+     replays), every flash launch through the wgmma body;
+  7. autotune: ``serve --autotune``'s tuning of the serving shape classes
      (SmolLM-360M prefill, decode and paged decode; Mamba2-1.3B's SSD
      scan), every candidate timed through its kernel on the device alone
      (calls captured in a CUDA graph): the flash kernel at its four wgmma
@@ -80,6 +92,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs.base import (InputShape, get_config,  # noqa: E402
                                        torch_dtype)
+from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_attention import \
     decode_attention as k2  # noqa: E402
@@ -276,8 +289,9 @@ def _wall_ms(fn, iters: int = 3) -> float:
 def _profile_in(fn, kernels: tuple) -> tuple:
     """From torch.profiler's trace of the card over one run of ``fn``: the
     ms and count of the device's kernels whose names contain each string of
-    ``kernels``, and the ms of all its activity.  A trace with no device
-    time fails."""
+    ``kernels``, the ms of all its activity, and the ms from the first
+    activity's start to the last one's end.  A trace with no device time
+    fails."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -287,7 +301,9 @@ def _profile_in(fn, kernels: tuple) -> tuple:
     assert dev, "torch.profiler's trace holds no device time"
     ms = lambda es: sum(e.time_range.elapsed_us() for e in es) / 1e3  # noqa
     found = [[e for e in dev if name in e.name] for name in kernels]
-    return [(ms(es), len(es)) for es in found], ms(dev)
+    span = (max(e.time_range.end for e in dev)
+            - min(e.time_range.start for e in dev)) / 1e3
+    return [(ms(es), len(es)) for es in found], ms(dev), span
 
 
 def _bound(nbytes: float, *work) -> tuple:
@@ -302,6 +318,11 @@ def _bound(nbytes: float, *work) -> tuple:
 
 def _maxerr(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
+
+
+def _reset_launches() -> None:
+    k1.reset_counts()
+    k2.LAUNCHES = k3.LAUNCHES = k4.LAUNCHES = 0
 
 
 def _relerr(out, ref) -> float:
@@ -938,8 +959,7 @@ def _model_run(arch: str, dtype: str, steps: int) -> None:
         floor, rtol = _maxerr(l64, lx), 0.0
         atol = {"prefill": max(3e-2, 2 * floor),
                 "decode": max(5e-2, 2 * floor)}
-    k1.reset_counts()
-    k2.LAUNCHES = k4.LAUNCHES = 0
+    _reset_launches()
     lk, ck = api.prefill(params, batch, cfg_k, capacity=cap)
     torch.cuda.synchronize()
     assert (k1.LAUNCHES, k2.LAUNCHES, k4.LAUNCHES) == (n_attn, 0, n_mamba), \
@@ -986,7 +1006,8 @@ def _model_run(arch: str, dtype: str, steps: int) -> None:
                  ("of which its chunk states", "ssd_chunk_state_kernel",
                   n_mamba),
                  ("and its output", "ssd_chunk_scan_kernel", n_mamba))
-        kern, busy = _profile_in(run_prefill, tuple(k for _, k, _ in names))
+        kern, busy, _ = _profile_in(run_prefill,
+                                    tuple(k for _, k, _ in names))
         parts = []
         for (label, _, want), (ms, n) in zip(names, kern):
             assert n == want, (label, n, want)
@@ -1002,7 +1023,8 @@ def _model_run(arch: str, dtype: str, steps: int) -> None:
         def run_step():
             api.decode_step(params, ck, tok, pos - 1, cfg_k)
 
-        (dec, ssd), busy = _profile_in(run_step, ("::decode_kernel<", "ssd_"))
+        (dec, ssd), busy, _ = _profile_in(run_step,
+                                          ("::decode_kernel<", "ssd_"))
         assert dec[1] == n_attn and ssd[1] == 0, ("decode step kernels", dec,
                                                   ssd)
         k2_part = (f"decode attention {dec[0]:.3f} ms over {dec[1]} kernels "
@@ -1036,18 +1058,101 @@ def phase_model() -> None:
         _model_run(arch, "bfloat16", STEPS)
 
 
+def _host_ms(fn) -> float:
+    """Host clock around one run of ``fn`` between two synchronises."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _graph_run(arch: str) -> None:
+    """``serve``'s executor at bucket BATCH: the request captured in a CUDA
+    graph, replayed, and held against the eager path; both timed in turns
+    (replay, eager, eager, replay); one replay traced."""
+    ex, cfg = real_executor_for(arch, prompt_len=PROMPT, new_tokens=STEPS)
+    n_attn, n_mamba = _path_counts(cfg)
+    t0 = time.perf_counter()
+    ex.warmup(BATCH, 1)
+    warm_s = time.perf_counter() - t0
+    entry = ex._exec[BATCH]
+    want = {"flash": n_attn, "flash/wgmma": n_attn,
+            "decode": n_attn * STEPS, "ssd_scan": n_mamba}
+    assert entry.launches == {k: v for k, v in want.items() if v}, \
+        ("launches recorded in the capture", entry.launches, want)
+    ex.run_step(BATCH, 1)
+    replayed = entry.out.clone()
+    eager = api.generate(ex.params, entry.batch, cfg, STEPS)
+    torch.cuda.synchronize()
+    assert replayed.shape == (BATCH, STEPS + 1), replayed.shape
+    assert int(replayed.min()) >= 0 and int(replayed.max()) < cfg.vocab_size
+    assert torch.equal(replayed, eager), \
+        ("replayed tokens differ from eager",
+         int((replayed != eager).sum()))
+
+    def replay():
+        entry.graph.replay()
+
+    def run_eager():
+        api.generate(ex.params, entry.batch, cfg, STEPS)
+
+    times = {"replay": [], "eager": []}
+    for which in ("replay", "eager", "eager", "replay"):
+        times[which].append(_host_ms(replay if which == "replay"
+                                     else run_eager))
+    names = (("flash", "flash_fwd_wgmma_kernel", n_attn),
+             ("decode", "::decode_kernel<", n_attn * STEPS),
+             ("ssd_scan", "ssd_", k4.KERNELS_PER_CALL * n_mamba))
+    kern, busy, span = _profile_in(replay, tuple(k for _, k, _ in names))
+    counted = {label: n for (label, _, _), (_, n) in zip(names, kern)}
+    assert counted == {label: n for label, _, n in names}, \
+        ("CUDA kernels in one replay", counted)
+    rep = sorted(times["replay"])[0]
+    ours = ", ".join(f"{label} {ms:.2f} ms" for (label, _, n), (ms, _)
+                     in zip(names, kern) if n)
+    print(f"[graphs] {cfg.name} bf16, {BATCH}x{PROMPT} + {STEPS} steps: "
+          f"warm-up and capture {warm_s:.2f}s (capture "
+          f"{ex.capture_time_s:.2f}s); replayed tokens equal the eager "
+          f"path's ({replayed.numel()} tokens); host clock per request, in "
+          f"turns: replay {', '.join(f'{t:.2f}' for t in times['replay'])} "
+          f"ms, eager {', '.join(f'{t:.2f}' for t in times['eager'])} ms")
+    print(f"[graphs] {cfg.name} one replay under torch.profiler: CUDA "
+          f"kernels {counted} (recorded in the capture: {entry.launches}), "
+          f"{ours}; all device activity {busy:.2f} ms over a {span:.2f} ms "
+          f"span (device idle share {1 - busy / span:.1%}); an unprofiled "
+          f"replay {rep:.2f} ms on the host clock")
+    del ex, entry, replayed, eager
+    torch.cuda.empty_cache()
+
+
+def phase_graphs() -> None:
+    for arch in (ARCH, SSM_ARCH, HYBRID_ARCH):
+        _graph_run(arch)
+
+
 def _serve(arch: str, max_bs: int, max_mtl: int, steps: int) -> dict:
     """A user's serving run, under ``serve``'s default controller
-    (DNNScaler).  Kernel launch counts are read over exactly
-    the engine's run, after the buckets' warm-up, the SLO's calibration and
-    the profiler's probes."""
+    (DNNScaler), every bucket captured in a CUDA graph at warm-up.  Kernel
+    launches are read over exactly the engine's run, after the buckets'
+    warm-up, the SLO's calibration and the profiler's probes: the
+    wrappers' own counts (launches outside a graph: none, with no miss)
+    plus the executor's count of the graphs' replays."""
     t0 = time.perf_counter()
     ex, cfg = real_executor_for(arch, prompt_len=PROMPT, new_tokens=STEPS)
     n_attn, n_mamba = _path_counts(cfg)
-    for n in sorted({ex.bucket(i) for i in range(1, max_bs * max_mtl + 1)}):
+    # DNNScaler's Profiler probes (1, 1), (m, 1) and (1, n), then scales bs
+    # at mtl 1 or mtl at bs 1, so no step needs more than max(max_bs,
+    # max_mtl) items.  Largest first: each smaller bucket's graph then
+    # reuses the shared pool's blocks, where in rising order every new
+    # largest bucket adds blocks of its own (no block spans two segments).
+    for n in sorted({ex.bucket(i) for i in range(1, max(max_bs, max_mtl)
+                                                 + 1)}, reverse=True):
         ex.warmup(n, 1)
     warm_s = time.perf_counter() - t0
+    reserved = torch.cuda.memory_reserved() / 2 ** 30
     warm_misses = ex.cache_stats.misses
+    assert ex.captures == warm_misses, (ex.captures, warm_misses)
     ex.cache_stats.reset_counters()
     base = ex.mean_latency(1, 1)
     slo = 4 * base
@@ -1055,22 +1160,30 @@ def _serve(arch: str, max_bs: int, max_mtl: int, steps: int) -> dict:
                            max_mtl=max_mtl)
     eng = ServingEngine(ex, slo, instance_launch_s=0.2)
     torch.cuda.synchronize()
-    k1.reset_counts()
-    k2.LAUNCHES = k4.LAUNCHES = 0
+    _reset_launches()
+    ex.replayed_launches.clear()
     acc = eng.run(ctrl, max_steps=steps)
     torch.cuda.synchronize()
-    launches = {"flash": k1.LAUNCHES, "decode": k2.LAUNCHES,
-                "ssd_scan": k4.LAUNCHES}
-    assert k1.LAUNCHES_BY_BODY["wgmma"] == k1.LAUNCHES, \
-        ("served flash launches not all through the wgmma body",
-         k1.LAUNCHES_BY_BODY)
+    eager = kernels.launch_counts()
+    assert not any(eager.values()), ("launches outside the graphs", eager)
+    replayed = ex.replayed_launches
+    launches = {k: replayed[k] for k in ("flash", "decode", "ssd_scan")}
+    assert replayed["flash/wgmma"] == replayed["flash"], \
+        ("served flash launches not all through the wgmma body", replayed)
     s, batches = acc.summary(), len(acc.trace)
     act = ctrl.action()
     cs = ex.cache_stats
+    replays = {n: e.replays for n, e in sorted(ex._exec.items())
+               if e.replays}
     print(f"[serving] {cfg.name} full width, {PROMPT}-token prompts + "
           f"{STEPS} decode steps per request, buckets up to "
-          f"{max_bs * max_mtl}: warmed {warm_misses} buckets in "
-          f"{warm_s:.1f}s; base {base * 1e3:.1f} ms -> SLO {slo * 1e3:.1f} ms")
+          f"{max(max_bs, max_mtl)} (max_bs {max_bs}, max_mtl {max_mtl}): "
+          f"warmed {warm_misses} buckets in {warm_s:.1f}s, of which "
+          f"{ex.capture_time_s:.1f}s capturing {ex.captures} CUDA graphs "
+          f"(memory reserved after the warm-up {reserved:.2f} GiB); base "
+          f"{base * 1e3:.1f} ms -> SLO "
+          f"{slo * 1e3:.1f} ms; replays per bucket over the whole run "
+          f"{replays}")
     print(f"[serving] controller dnnscaler: approach={ctrl.approach} "
           f"profiler picked "
           f"{ctrl.profile.approach}; steady(bs={act.bs}, mtl={act.mtl}); "
@@ -1087,7 +1200,8 @@ def _serve(arch: str, max_bs: int, max_mtl: int, steps: int) -> dict:
     per = ", ".join(f"{k} {v} ({v / s['items']:.3f} per served request)"
                     for k, v in launches.items())
     print(f"[serving] kernel launches over the engine's run ({batches} "
-          f"served batches, {s['items']} served requests): {per}; per batch "
+          f"served batches = graph replays, {s['items']} served requests; "
+          f"none outside a graph): {per}; per batch "
           f"{n_attn} flash{' (all wgmma)' if n_attn else ''}, "
           f"{n_attn * STEPS} decode, {n_mamba} ssd_scan")
     del ex, ctrl, eng
@@ -1097,11 +1211,9 @@ def _serve(arch: str, max_bs: int, max_mtl: int, steps: int) -> dict:
 
 def phase_serving() -> dict:
     """The main paths: SmolLM-360M (K1, K2), then Mamba2-1.3B (K4), each
-    with its own counts.  The Mamba2 run is cut to buckets up to 32 and 20
-    engine steps to keep the script near four minutes: its decode steps are
-    host-bound eager PyTorch, about twice SmolLM's."""
+    with its own counts, at the same buckets (up to 256) and steps."""
     smollm = _serve(ARCH, 64, 4, 40)
-    mamba = _serve(SSM_ARCH, 8, 4, 20)
+    mamba = _serve(SSM_ARCH, 64, 4, 40)
     return {"flash": smollm["flash"], "decode": smollm["decode"],
             "ssd_scan": mamba["ssd_scan"]}
 
@@ -1179,8 +1291,7 @@ def phase_autotune() -> int:
     _check_paged_class(*classes[2][1:])
     gen0 = autotune.generation()
     torch.cuda.synchronize()
-    k1.reset_counts()
-    k2.LAUNCHES = k3.LAUNCHES = k4.LAUNCHES = 0
+    _reset_launches()
     t0 = time.perf_counter()
     entries = _tune_all(classes)
     torch.cuda.synchronize()
@@ -1244,13 +1355,28 @@ def main() -> None:
     autotune.configure(cache_dir=store.name, tune_on_miss=False,
                        enabled=True)
     smi = phase_toolchain()
+    marks = [("toolchain", time.perf_counter())]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+
     phase_build()
+    mark("build")
     rows = phase_kernels()
     rows["ssd_scan"] = phase_ssd()
     rows["paged"] = phase_paged()
+    mark("kernels")
     phase_model()
+    mark("model")
+    phase_graphs()
+    mark("graphs")
     launches = phase_serving()
+    mark("serving")
     launches["paged"] = phase_autotune()
+    mark("autotune")
+    print("[done] seconds by phase: " + ", ".join(
+        f"{name} {t - prev:.1f}" for (_, prev), (name, t)
+        in zip(marks, marks[1:])))
     kernels = [dict(rows[n], launches=launches[n])
                for n in ("flash", "decode", "paged", "ssd_scan")]
     store.cleanup()

@@ -115,8 +115,13 @@ def work(B: int, T: int, H: int, P: int, N: int, chunk: int, x_size: int,
 
 def _counters(n: int, device, stream: int) -> torch.Tensor:
     """int32 counters the chunk-state kernel finds its last block by, one
-    per (batch, head): allocated zero once per device, stream and size,
-    and left zero by every call."""
+    per (batch, head), left zero by every call.  Outside a CUDA-graph
+    capture: allocated zero once per device, stream and size, and kept.
+    Inside one: fresh zeros for this call alone, so the graph holds the
+    zeroing and its own block of memory, and replacing a kept tensor with
+    a larger one never frees a block that a captured graph still writes."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(n, dtype=torch.int32, device=device)
     key = (device, stream)
     cnt = _COUNTERS.get(key)
     if cnt is None or cnt.numel() < n:

@@ -13,7 +13,10 @@ served ``train_loss`` here, which reaches no kernel); the model runs with
 ``kernel_impl="pallas"``, which in this package means the Hopper kernels
 on a CUDA device (attention for the dense models and Zamba2's shared block,
 the SSD scan for every Mamba block's prefill) and their plain versions on
-the CPU.
+the CPU.  On a CUDA device each batch bucket's request is captured once in
+a CUDA graph and replayed (``RealExecutor``'s ``aot``, as the reference
+serves one ahead-of-time executable per bucket); on the CPU it runs
+eagerly.
 
 ``--autotune`` tunes each kernel shape class a wrapper's lookup misses
 (``tune_on_miss``) and persists it in the autotune cache; without it the
@@ -176,6 +179,12 @@ def main() -> None:
           f"(hit rate {cs.hit_rate:.2f}) stale evictions "
           f"{cs.stale_evictions} stale hits {cs.stale_hits}  warm-up "
           f"{cs.compile_time_s:.2f}s charged {s['compile_stall_s']:.2f}s")
+    if executor.captures:
+        print(f"  CUDA graphs: {executor.captures} buckets captured, "
+              f"{executor.capture_time_s:.2f}s of the warm-up in captures; "
+              f"every later step replays its bucket's graph")
+    else:
+        print("  no CUDA graphs: every step runs eagerly")
     if hasattr(ctrl, "probe_count"):
         print(f"  probes: {ctrl.probe_count} distinct (bs, mtl) points")
     if args.autotune:

@@ -91,13 +91,15 @@ def make_batch(cfg: ModelConfig, shape: InputShape, seed: int = 0,
 def generate(params, batch, cfg: ModelConfig, steps: int) -> torch.Tensor:
     """One served request batch: prefill the prompts, then ``steps`` greedy
     decode steps.  Returns the (B, steps + 1) generated token ids.  The
-    position stays a device tensor, so no step waits on the host."""
+    position is made and advanced on the device (no copy from the host),
+    so no step waits on the host and the whole request can be captured in
+    a CUDA graph."""
     tokens = batch["tokens"]
     T = tokens.shape[1]
     logits, cache = prefill(params, batch, cfg, capacity=T + steps)
     tok = logits.argmax(-1).to(torch.int32)
     out = [tok]
-    pos = torch.tensor(T, dtype=torch.int32, device=tokens.device)
+    pos = torch.full((), T, dtype=torch.int32, device=tokens.device)
     for _ in range(steps):
         logits, cache = decode_step(params, cache, tok, pos, cfg)
         tok = logits.argmax(-1).to(torch.int32)

@@ -10,25 +10,39 @@ RealExecutor — actually runs a model callable on the device and measures
   instance batches into one batch, as in the reference.
 
   Batch shapes are bucketed so scaler probes of nearby (bs, mtl) points
-  reuse one warmed-up bucket, and every bucket's first (warm-up) run is
-  timed and reported in ``result["compile_time"]``, so the engine charges
-  it to the service clock like an instance-launch stall.  PyTorch runs
-  eagerly: a bucket's warm-up is one full run, ended by a device
-  synchronise.  Cache hit/miss counters live in ``metrics.ExecCacheStats``;
-  steady-state probing must show zero misses after warm-up.  A warmed
-  bucket carries the autotune generation (``perf.autotune.generation``)
-  it ran under: a new tuning evicts it and warms it again, and serving a
-  stale bucket counts as a ``stale_hit``.
+  reuse one bucket, and every bucket's first run is timed and reported in
+  ``result["compile_time"]``, so the engine charges it to the service
+  clock like an instance-launch stall.  The reference compiles one
+  ahead-of-time executable per bucket (``aot=True``); the card's
+  counterpart is one CUDA graph per bucket (``CudaGraphs``): a miss runs
+  the bucket once eagerly on the capture stream (kernel builds, autotune
+  searches), captures one run in a ``torch.cuda.CUDAGraph``, and every
+  later probe and served step replays it, so the latencies the scalers
+  read carry no per-op host dispatch.  A capture or replay that fails
+  raises; nothing falls back to eager.  On the CPU no graph exists and
+  the executor runs eagerly whatever ``aot`` says, as it does with
+  ``aot=False`` on the card (the reference's jit without AOT): a
+  bucket's warm-up is then one full run, ended by a synchronise.
+
+  Cache hit/miss counters live in ``metrics.ExecCacheStats``;
+  steady-state probing must show zero misses after warm-up.  A bucket
+  carries the autotune generation (``perf.autotune.generation``) read
+  after its warm-up and capture: a new tuning evicts it and captures it
+  again, and serving a stale bucket counts as a ``stale_hit``.
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
+import functools
 import time
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.perf import autotune
 from repro_torch.serving import device_model as dm
 from repro_torch.serving import tenancy
@@ -241,8 +255,80 @@ def tensor_leaves(tree) -> list:
     return [tree] if isinstance(tree, torch.Tensor) else []
 
 
+def _tree_map(fn: Callable, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
 def _tree_bytes(tree) -> float:
     return float(sum(x.numel() * x.element_size() for x in tensor_leaves(tree)))
+
+
+class CudaGraphs:
+    """Captures a bucket's run in a CUDA graph: the card's counterpart of
+    the reference's ahead-of-time executable.
+
+    Warm-ups and captures run on one side stream, and every bucket's graph
+    draws on one memory pool.  That is safe because the buckets replay one
+    at a time on one stream and each entry keeps its graph's static input
+    and output alive, so only temporaries are shared.  Captured largest
+    first, the pool holds about the largest bucket's memory, each smaller
+    bucket carving its blocks out of the larger one's; captured in rising
+    order, each new largest bucket adds blocks of its own (a block never
+    spans two of the allocator's segments), so a caller that warms many
+    buckets ahead of serving warms the largest first."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.pool = torch.cuda.graph_pool_handle()
+
+    def warm_up(self, run: Callable) -> None:
+        """One eager run on the capture stream, ended by a synchronise:
+        kernel builds and autotune searches (whose timing captures graphs
+        of its own, and a capture cannot be nested) happen here, not inside
+        the capture."""
+        with torch.cuda.device(self.device):
+            self.stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(self.stream):
+                run()
+            torch.cuda.synchronize()
+
+    def capture(self, run: Callable) -> tuple:
+        """(graph, the run's output): one run captured, not executed; the
+        output lives in the pool and is rewritten by every replay."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(self.device):
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                out = run()
+            torch.cuda.synchronize()
+        return graph, out
+
+
+def graph_capturer(device: torch.device) -> Optional[CudaGraphs]:
+    """What captures a bucket on ``device``: CUDA graphs on a CUDA device;
+    nothing on the CPU, where no graph exists and the executor runs
+    eagerly."""
+    return CudaGraphs(device) if device.type == "cuda" else None
+
+
+@dataclasses.dataclass
+class _Bucket:
+    """A warmed bucket.  ``batch`` is what a run reads; under a graph it is
+    the graph's static input, read in place by every replay, and ``out``
+    the static output; the entry keeps both alive.  ``launches`` holds the
+    kernel launches of one replay (the wrappers' counts across the
+    capture); ``host`` is the template ``donate_batch`` stages from."""
+    batch: dict
+    generation: int
+    graph: object = None
+    out: object = None
+    launches: dict = dataclasses.field(default_factory=dict)
+    host: Optional[dict] = None
+    replays: int = 0
 
 
 class RealExecutor:
@@ -251,10 +337,17 @@ class RealExecutor:
     `fn(params, batch)` consumes a batch dict whose tensors have leading
     dim = instances*bs (instances folded in by the caller via make_batch).
 
-    Bucketing: `run_step(bs, mtl)` rounds bs*mtl up to a bucket, warms that
-    bucket up once (one timed run) and reuses its batch for every operating
-    point that lands in the bucket (padding rows are masked out of the
-    throughput accounting — only real items count).
+    AOT + bucketing: `run_step(bs, mtl)` rounds bs*mtl up to a bucket,
+    captures that bucket's run once in a CUDA graph (``aot``, on a CUDA
+    device) or warms it up with one eager run, and reuses it for every
+    operating point that lands in the bucket (padding rows are masked out
+    of the throughput accounting — only real items count).  With
+    `donate_batch=True` a fresh batch is staged from a host copy before
+    the timer on every step (into the graph's static input, or as a new
+    device batch when running eagerly): the real serving path, where every
+    request brings new data; by default the bucket's batch is reused.
+    `replayed_launches` counts the kernel launches of every replay, which
+    the kernel wrappers' own counters do not see.
     """
 
     def __init__(self, fn: Callable, params, make_batch: Callable,
@@ -262,6 +355,8 @@ class RealExecutor:
                  mem_bytes: Optional[float] = None,
                  act_bytes_per_item: Optional[float] = None,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
+                 donate_batch: bool = False,
+                 aot: bool = True,
                  tile_generation: Optional[Callable[[], int]] = None,
                  kv_bytes_per_item: float = 0.0):
         self.fn = fn
@@ -273,14 +368,19 @@ class RealExecutor:
         self.act_bytes_per_item = act_bytes_per_item
         self.kv_bytes_per_item = kv_bytes_per_item
         self.buckets = tuple(sorted(buckets))
-        # bucket items -> (batch, tuned-tile generation); a generation bump
-        # makes resident entries stale — evicted and re-warmed, never
-        # served
+        self.donate_batch = donate_batch
+        self.aot = aot
+        # bucket items -> _Bucket; a generation bump makes resident entries
+        # stale — evicted and captured again, never served
         self._exec: dict = {}
         self._tile_generation = tile_generation or autotune.generation
         self._param_bytes: Optional[float] = None
         leaves = tensor_leaves(params)
         self.device = leaves[0].device if leaves else torch.device("cpu")
+        self._graphs = graph_capturer(self.device) if aot else None
+        self.replayed_launches = collections.Counter()  # kernel -> launches
+        self.captures = 0                # graphs captured
+        self.capture_time_s = 0.0        # of compile_time_s, in captures
         self.cache_stats = ExecCacheStats()
         self._pending_compile = 0.0      # warm-up seconds not yet charged
         self.partition = None            # TenantSlice: capped-batch proxy
@@ -331,41 +431,85 @@ class RealExecutor:
         return need <= self.mem_bytes
 
     # -- bucket cache -------------------------------------------------------
-    def _get(self, n_bucket: int):
+    def _get(self, n_bucket: int) -> _Bucket:
         entry = self._exec.get(n_bucket)
         if entry is not None:
-            if entry[1] == int(self._tile_generation()):
+            if entry.generation == int(self._tile_generation()):
                 self.cache_stats.hits += 1
                 return entry
-            # warmed up under superseded tile sizes: evict, never serve
+            # built under superseded tile sizes: evict, never serve
             del self._exec[n_bucket]
             self.cache_stats.stale_evictions += 1
         self.cache_stats.misses += 1
         t0 = time.perf_counter()
         batch = self.make_batch(n_bucket)
-        self.fn(self.params, batch)      # warm-up: allocator, kernel builds
-        self._sync()
+        host = (_tree_map(lambda x: x.to("cpu", copy=True), batch)
+                if self.donate_batch else None)
+        run = functools.partial(self.fn, self.params, batch)
+        graph = out = None
+        launches = {}
+        if self._graphs is None:
+            run()                        # warm-up: allocator, kernel builds
+            self._sync()
+        else:
+            self._graphs.warm_up(run)
+            before = kernels.launch_counts()
+            t1 = time.perf_counter()
+            graph, out = self._graphs.capture(run)
+            self.capture_time_s += time.perf_counter() - t1
+            self.captures += 1
+            launches = {k: n - before[k]
+                        for k, n in kernels.launch_counts().items()
+                        if n != before[k]}
         dt = time.perf_counter() - t0
         self.cache_stats.compile_time_s += dt
         self._pending_compile += dt
-        entry = (batch, int(self._tile_generation()))
+        # tagged with the generation read AFTER the capture: a tune_on_miss
+        # search during the warm-up bumps it, and the graph already uses
+        # its result
+        entry = _Bucket(batch, int(self._tile_generation()), graph, out,
+                        launches, host)
         self._exec[n_bucket] = entry
         return entry
 
+    def _staged(self, entry: _Bucket):
+        """The batch a run reads: with ``donate_batch``, a fresh copy of the
+        host template, written into the graph's static input or made anew
+        for an eager run; else the bucket's batch."""
+        if entry.host is None:
+            return entry.batch
+        if entry.graph is None:
+            return _tree_map(lambda x: x.to(self.device, copy=True),
+                             entry.host)
+        for dst, src in zip(tensor_leaves(entry.batch),
+                            tensor_leaves(entry.host)):
+            dst.copy_(src)
+        return entry.batch
+
+    def _run(self, entry: _Bucket, batch) -> None:
+        if entry.graph is None:
+            self.fn(self.params, batch)
+            return
+        entry.graph.replay()
+        entry.replays += 1
+        self.replayed_launches.update(entry.launches)
+
     # -- migration instrumentation -------------------------------------------
     def shutdown(self) -> float:
-        """Drop the warmed-up buckets (the 'kill' half of a migration's
-        kill+relaunch round) and return the seconds it took."""
+        """Drop the warmed-up buckets and their graphs (the 'kill' half of
+        a migration's kill+relaunch round) and return the seconds it
+        took."""
         t0 = time.perf_counter()
+        self._sync()
         self._exec.clear()
         self._pending_compile = 0.0
         return time.perf_counter() - t0
 
     def warmup(self, bs: int, mtl: int) -> float:
-        """Warm up the bucket for (bs, mtl) ahead of serving and return the
-        seconds it took (0.0 on a cache hit).  The pending charge is
-        consumed here so the caller charging it as a stall does not
-        double-charge the next step."""
+        """Warm up (and on the card capture) the bucket for (bs, mtl) ahead
+        of serving and return the seconds it took (0.0 on a cache hit).
+        The pending charge is consumed here so the caller charging it as a
+        stall does not double-charge the next step."""
         self._get(self.bucket(bs * mtl))
         dt = self._pending_compile
         self._pending_compile = 0.0
@@ -373,11 +517,15 @@ class RealExecutor:
 
     # -- pricing ------------------------------------------------------------
     def mean_latency(self, bs: int, mtl: int, iters: int = 3) -> float:
-        batch, _ = self._get(self.bucket(bs * mtl))
+        entry = self._get(self.bucket(bs * mtl))
+        if entry.graph is None:
+            batches = [self._staged(entry) for _ in range(iters)]
+        else:
+            batches = [self._staged(entry)] * iters     # one static input
         self._sync()
         t0 = time.perf_counter()
-        for _ in range(iters):
-            self.fn(self.params, batch)
+        for batch in batches:
+            self._run(entry, batch)
         self._sync()
         wall = (time.perf_counter() - t0) / iters
         if self.partition is not None:
@@ -387,18 +535,19 @@ class RealExecutor:
     # -- execution ----------------------------------------------------------
     def run_step(self, bs: int, mtl: int) -> dict:
         nb = self.bucket(bs * mtl)
-        batch, gen = self._get(nb)
+        entry = self._get(nb)
         comp = self._pending_compile
         self._pending_compile = 0.0
+        batch = self._staged(entry)
         self._sync()
         t0 = time.perf_counter()
-        self.fn(self.params, batch)
+        self._run(entry, batch)
         self._sync()
         wall = time.perf_counter() - t0
         slowdown = (self.partition.proxy_slowdown()
                     if self.partition is not None else 1.0)
         lat = wall * slowdown
-        if gen != int(self._tile_generation()):
+        if entry.generation != int(self._tile_generation()):
             # a tuning landed between the cache lookup and this serve: count
             # it (steady-state serving asserts ZERO) and evict
             self.cache_stats.stale_hits += 1
