@@ -25,18 +25,28 @@ stale ``.profile_store/`` in the working directory changes nothing:
      printed.  Each time is taken twice:
      eager (20 calls between two CUDA events, the wrapper's host work
      included) and on the device alone (the same 20 calls captured once in
-     a CUDA graph and replayed between two events);
-  4. model: full-width SmolLM-360M, Mamba2-1.3B and Zamba2-1.2B (random
-     weights from a seed), prefill 8 x 512 and decode steps through the
-     kernels, held against the plain path on the card (float32 at 1e-4;
+     a CUDA graph and replayed between two events).  K1 and K2 also at the
+     call shapes of InternVL2-2B (hd 128, G 2) and Whisper-medium (hd 64,
+     G 1: its bidirectional encoder over 1500 frames, its decoder's
+     self-attention, its cross-attention at prefill through K1 and at
+     decode through K2 over a transposed view of the encoder's cache),
+     each held against its plain version in both dtypes with the body
+     asserted, and timed on the device alone beside SDPA with its bound;
+  4. model: full-width SmolLM-360M, Mamba2-1.3B, Zamba2-1.2B, InternVL2-2B
+     (a prompt of 256 patch embeddings and 256 text tokens) and
+     Whisper-medium (1500 encoder frames, a 512-token decoder prompt),
+     random weights from a seed, prefill 8 x 512 and decode steps through
+     the kernels, held against the plain path on the card (float32 at 1e-4;
      bf16 at the JAX bounds or twice the plain path's own rounding floor,
      whichever is larger; argmax equal but at near-ties), with the
      kernels' launch counts checked, every bf16 flash launch through the
      wgmma body, and from torch.profiler's traces of the card, of one bf16
      prefill and one bf16 decode step: the flash, decode and SSD-scan
-     kernels' time and count (one decode kernel per attention layer, two
-     SSD-scan kernels per Mamba block), and the device's idle share;
-  5. graphs: the same three models (bf16, 8 x 512 + 32 steps) through
+     kernels' time and count (one decode kernel per attention call: 24
+     self and 24 cross per Whisper step; two SSD-scan kernels per Mamba
+     block; Whisper's 72 flash kernels per prefill: 24 encoder, 24 self,
+     24 cross), and the device's idle share;
+  5. graphs: the same five models (bf16, 8 x 512 + 32 steps) through
      ``serve``'s executor, which captures each batch bucket's request
      (``api.generate``) once in a CUDA graph: the replayed tokens equal
      the eager path's on the same batch; one replayed and one eager
@@ -49,7 +59,9 @@ stale ``.profile_store/`` in the working directory changes nothing:
      the paper's loop: the Profiler picks Batching or Multi-Tenancy and a
      1-D scaler tunes it; estimator seeded as ``serve`` seeds it) +
      ServingEngine at full width, SmolLM-360M (flash
-     + decode attention) and then Mamba2-1.3B (SSD scan), each bucket
+     + decode attention) and then Mamba2-1.3B (SSD scan), at buckets up to
+     64 and 40 steps, then InternVL2-2B and Whisper-medium (flash + decode
+     attention) at buckets up to 16 and 10 steps, each bucket
      captured in a CUDA graph at warm-up and replayed by every step, with
      zero bucket-cache misses and stale hits after warm-up and its
      kernels' launches over the engine's run counted from the replays
@@ -66,8 +78,10 @@ stale ``.profile_store/`` in the working directory changes nothing:
      own tile; then a short SmolLM serving run on the tuned cache with
      zero misses and zero stale hits after warm-up.
 
-Prints the kernels' JSON line, the card's name and power limit, and last
-the device JSON line.  Exits non-zero without a CUDA device.
+Prints the kernels' JSON line (each kernel's launches on the first served
+path that reaches it, and by path in ``launches_by_path``), the card's
+name and power limit, and last the device JSON line.  Exits non-zero
+without a CUDA device.
 """
 
 from __future__ import annotations
@@ -216,6 +230,9 @@ PAGED_VIEW = (3, 512, 6, 2, 64, 32, (512, 200, 0), None, 30.0)
 # the serving paths' shapes: 8 prompts of 512 tokens, 32 decode steps
 ARCH, BATCH, PROMPT, STEPS = "smollm_360m", 8, 512, 32
 SSM_ARCH, HYBRID_ARCH = "mamba2_1p3b", "zamba2_1p2b"
+# the vision stub (256 of a prompt's 512 positions are patches) and the
+# encoder-decoder (1500 encoder frames and a 512-token decoder prompt)
+VLM_ARCH, ENCDEC_ARCH = "internvl2_2b", "whisper_medium"
 
 
 def _rand(gen, shape, dtype, scale=0.5):
@@ -420,12 +437,18 @@ def _check_tile(q, k, v, tile, what: str) -> float:
 
 
 def _check_decode(gen, case, dtype, kvmajor: bool,
-                  split_len=None) -> tuple:
+                  split_len=None, view: bool = False) -> tuple:
+    """``view``: the kv-major wrapper reads a (B, S, KV, hd) cache through
+    its transposed view, no copy, as a decode step's cross-attention reads
+    the encoder's K/V."""
     B, S, H, KV, hd, pos, window, cap = case
     q, k, v = _qkv(gen, (B, H, hd), (B, S, KV, hd), dtype)
     p = torch.tensor([pos], dtype=torch.int32, device=DEV)
     kw = dict(window=window, logit_cap=cap, split_len=split_len)
-    if kvmajor:   # the model's (B, KV, S, hd) layout, contiguous
+    if view:
+        out = decode_ops.decode_attention_kvmajor(
+            q, k.transpose(1, 2), v.transpose(1, 2), p, **kw)
+    elif kvmajor:   # the model's (B, KV, S, hd) layout, contiguous
         out = decode_ops.decode_attention_kvmajor(
             q, k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
             p, **kw)
@@ -560,6 +583,94 @@ def phase_kernels() -> dict:
                        plain_ms=d_plain, bound_ms=d_bound, bound_by=d_by,
                        library_ms=d_lib, library_device_ms=d_lib_dev),
     }
+
+
+def _family_shapes() -> tuple:
+    """The call shapes InternVL2-2B's and Whisper-medium's paths give K1
+    and K2 at 8 x 512 positions and 32 steps, by name: K1 cases (B, Tq,
+    Tk, H, KV, hd, causal, window, cap), K2 cases ((B, S, H, KV, hd, pos,
+    window, cap), whether the cache is read through a transposed view)."""
+    vlm, enc = get_config(VLM_ARCH), get_config(ENCDEC_ARCH)
+    S, Se = PROMPT + STEPS, enc.encoder_seq_len
+    gv = (vlm.num_heads, vlm.num_kv_heads, vlm.head_dim)
+    ge = (enc.num_heads, enc.num_kv_heads, enc.head_dim)
+    flash = {
+        "internvl2 prefill": (BATCH, PROMPT, PROMPT, *gv, True, None, None),
+        "whisper encoder": (BATCH, Se, Se, *ge, False, None, None),
+        "whisper self prefill": (BATCH, PROMPT, PROMPT, *ge, True, None,
+                                 None),
+        "whisper cross prefill": (BATCH, PROMPT, Se, *ge, False, None, None),
+    }
+    decode = {
+        "internvl2 decode": ((BATCH, S, *gv, S - 1, None, None), False),
+        "whisper self decode": ((BATCH, S, *ge, S - 1, None, None), False),
+        "whisper cross decode": ((BATCH, Se, *ge, Se - 1, None, None), True),
+    }
+    return flash, decode
+
+
+def phase_family_shapes() -> dict:
+    """K1 and K2 at the call shapes of InternVL2-2B (hd 128, G 2) and
+    Whisper-medium (hd 64, G 1; 1500 encoder frames, not a multiple of
+    either wgmma tile; non-causal encoder and cross-attention; the decode
+    step's cross-attention through a transposed view of the (B, S_enc, KV,
+    hd) cache), each held against its plain version in float32 and
+    bfloat16 with the body asserted, then timed in bf16 on the device
+    alone beside SDPA at the same shape, with its bound."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(19)
+    flash, decode = _family_shapes()
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, case in flash.items():
+            rows.setdefault(name, {})[dtype] = _check_flash(gen, case,
+                                                            dtype)[0]
+        for name, (case, view) in decode.items():
+            rows.setdefault(name, {})[dtype] = _check_decode(
+                gen, case, dtype, True, view=view)[0]
+    dt = torch.bfloat16
+    timed = {}
+    for name, case in flash.items():
+        B, Tq, Tk, H, KV, hd, causal, _, _ = case
+        q, k, v = _qkv(gen, (B, Tq, H, hd), (B, Tk, KV, hd), dt)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        dev = _graph_ms(lambda: flash_ops.flash_attention(q, k, v,
+                                                          causal=causal))
+        lib = _graph_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True))
+        plain = _time_ms(lambda: attention_ref(q, k, v, causal=causal))
+        pairs = B * H * (Tq * (Tq + 1) // 2 if causal else Tq * Tk)
+        bound, by = _bound(2 * (2 * q.numel() + 2 * k.numel()),
+                           (4 * pairs * hd, BF16_FLOPS))
+        timed[name] = ("K1", case, dev, lib, plain, bound, by)
+    for name, (case, view) in decode.items():
+        B, S, H, KV, hd, pos, _, _ = case
+        qd = _rand(gen, (B, H, hd), dt, 2.0)
+        if view:
+            kc, vc = (_rand(gen, (B, S, KV, hd), dt, s).transpose(1, 2)
+                      for s in (2.0, 0.5))
+        else:
+            kc, vc = (_rand(gen, (B, KV, S, hd), dt, s) for s in (2.0, 0.5))
+        pd = torch.tensor([pos], dtype=torch.int32, device=DEV)
+        dev = _graph_ms(lambda: decode_ops.decode_attention_kvmajor(
+            qd, kc, vc, pd))
+        live = pos + 1
+        lib = _graph_ms(lambda: F.scaled_dot_product_attention(
+            qd[:, :, None], kc[:, :, :live], vc[:, :, :live],
+            enable_gqa=True))
+        plain = _time_ms(lambda: decode_attention_ref(
+            qd, kc.transpose(1, 2), vc.transpose(1, 2), pos))
+        bound, by = _bound(2 * (2 * qd.numel() + 2 * B * KV * live * hd),
+                           (4 * B * H * live * hd, BF16_FLOPS))
+        timed[name] = ("K2", case, dev, lib, plain, bound, by)
+    for name, (kern, case, dev, lib, plain, bound, by) in timed.items():
+        err = rows[name]
+        print(f"[kernels] {kern} at the {name} shape {case[:-2]}: max |kernel "
+              f"- plain| float32 {err[torch.float32]:.3e} (tol 2e-5), "
+              f"bfloat16 {err[torch.bfloat16]:.3e} (tol 2e-2); bf16 device "
+              f"{dev:.4f} ms, sdpa device {lib:.4f} ms, plain {plain:.4f} "
+              f"ms, bound {bound:.4f} ms ({by})")
+    return timed
 
 
 def _ssd_inputs(gen, case, bc_dtype, x_dtype=torch.float32,
@@ -875,12 +986,21 @@ def _clone(tree):
     return tree.clone()
 
 
-# (attention layers, Mamba blocks) of each full-width model: K1 launches per
-# prefill and K2 per decode step, K4 launches per prefill
-PATH_COUNTS = {ARCH: (32, 0), SSM_ARCH: (0, 48), HYBRID_ARCH: (6, 32)}
+# launches of each full-width model: K1 per prefill, K2 per decode step, K4
+# per prefill
+PATH_COUNTS = {ARCH: (32, 32, 0), SSM_ARCH: (0, 0, 48),
+               HYBRID_ARCH: (6, 6, 32), VLM_ARCH: (24, 24, 0),
+               ENCDEC_ARCH: (72, 48, 0)}
 
 
 def _path_counts(cfg) -> tuple:
+    """(K1 per prefill, K2 per decode step, K4 per prefill) from the
+    config: an encoder-decoder's prefill runs its encoder layers and its
+    decoder's self- and cross-attention through K1, its decode step the
+    decoder's self- and cross-attention through K2."""
+    if cfg.is_encoder_decoder:
+        return (cfg.encoder_layers + 2 * cfg.num_layers,
+                2 * cfg.num_layers, 0)
     attn = mamba = 0
     for kind, count in cfg.layer_groups:
         if kind == "mamba":
@@ -892,10 +1012,10 @@ def _path_counts(cfg) -> tuple:
             attn += 2 * count
         else:
             attn += count
-    return attn, mamba
+    return attn, attn, mamba
 
 
-def _lookup_cost(cfg, n_attn: int, step) -> None:
+def _lookup_cost(cfg, n_dec: int, step) -> None:
     """What the wrappers' autotune lookups (one per attention layer and
     decode step, memoised) cost: one lookup on the host clock, and the
     decode step with lookups on and off, in turns (on, off, off, on, ...),
@@ -919,7 +1039,7 @@ def _lookup_cost(cfg, n_attn: int, step) -> None:
     print(f"[model] {cfg.name} bf16 decode step, median of 4 runs each in "
           f"turns: with the memoised autotune lookups {on_ms:.2f} ms, "
           f"without {off_ms:.2f} ms; one lookup {per_us:.2f} us on the "
-          f"host, {n_attn} per step = {n_attn * per_us / 1e3:.3f} ms")
+          f"host, {n_dec} per step = {n_dec * per_us / 1e3:.3f} ms")
 
 
 def _model_run(arch: str, dtype: str, steps: int) -> None:
@@ -936,8 +1056,9 @@ def _model_run(arch: str, dtype: str, steps: int) -> None:
     attention blocks and 128-token instead of 256-token SSD chunks (same
     math, other rounding)."""
     cfg = get_config(arch).replace(dtype=dtype)
-    n_attn, n_mamba = _path_counts(cfg)
-    assert (n_attn, n_mamba) == PATH_COUNTS[arch], (arch, n_attn, n_mamba)
+    n_pre, n_dec, n_mamba = _path_counts(cfg)
+    assert (n_pre, n_dec, n_mamba) == PATH_COUNTS[arch], (arch, n_pre, n_dec,
+                                                          n_mamba)
     cfg_k, cfg_x = cfg.replace(kernel_impl="pallas"), cfg.replace(kernel_impl="xla")
     params = api.init_params(cfg_k, seed=0)
     nparam = sum(x.numel() for x in tensor_leaves(params))
@@ -962,9 +1083,9 @@ def _model_run(arch: str, dtype: str, steps: int) -> None:
     _reset_launches()
     lk, ck = api.prefill(params, batch, cfg_k, capacity=cap)
     torch.cuda.synchronize()
-    assert (k1.LAUNCHES, k2.LAUNCHES, k4.LAUNCHES) == (n_attn, 0, n_mamba), \
+    assert (k1.LAUNCHES, k2.LAUNCHES, k4.LAUNCHES) == (n_pre, 0, n_mamba), \
         ("prefill launches", k1.LAUNCHES, k2.LAUNCHES, k4.LAUNCHES)
-    body = _flash_body(torch_dtype(cfg), cfg.head_dim) if n_attn else None
+    body = _flash_body(torch_dtype(cfg), cfg.head_dim) if n_pre else None
     assert k1.LAUNCHES_BY_BODY.get(body, 0) == k1.LAUNCHES, \
         ("flash launches not all through the", body, "body",
          k1.LAUNCHES_BY_BODY)
@@ -972,14 +1093,15 @@ def _model_run(arch: str, dtype: str, steps: int) -> None:
     p_err, p_jax = _maxerr(lk, lx), _bound_used(lk, lx, 3e-2, 3e-2)
     d_err = d_jax = 0.0
     tok = lk.argmax(-1).to(torch.int32)
+    assert api.prefill_len(batch) == PROMPT, api.prefill_len(batch)
     pos = torch.tensor(PROMPT, dtype=torch.int32, device=DEV)
     for step in range(steps):
         dx, _ = api.decode_step(params, _clone(ck), tok, pos, cfg_x)
         before = k2.LAUNCHES
         dk, ck = api.decode_step(params, ck, tok, pos, cfg_k)
         torch.cuda.synchronize()
-        assert k2.LAUNCHES - before == n_attn, ("decode launches", step)
-        assert (k1.LAUNCHES, k4.LAUNCHES) == (n_attn, n_mamba), \
+        assert k2.LAUNCHES - before == n_dec, ("decode launches", step)
+        assert (k1.LAUNCHES, k4.LAUNCHES) == (n_pre, n_mamba), \
             "decode reached a prefill kernel"
         flips += _check_logits(dk, dx, atol["decode"], rtol,
                                f"decode step {step}")
@@ -995,13 +1117,13 @@ def _model_run(arch: str, dtype: str, steps: int) -> None:
         pre_ms = _wall_ms(run_prefill)
         step_ms = _wall_ms(lambda: api.decode_step(params, ck, tok, pos - 1,
                                                    cfg_k))
-        if n_attn:
-            _lookup_cost(cfg, n_attn, lambda: api.decode_step(
+        if n_dec:
+            _lookup_cost(cfg, n_dec, lambda: api.decode_step(
                 params, ck, tok, pos - 1, cfg_k))
         print(f"[model] {cfg.name} bf16 kernel path, host clock around "
               f"synchronised runs: prefill {BATCH}x{PROMPT} {pre_ms:.2f} ms, "
               f"decode step {step_ms:.2f} ms")
-        names = (("flash", "flash_fwd_wgmma_kernel", n_attn),
+        names = (("flash", "flash_fwd_wgmma_kernel", n_pre),
                  ("ssd_scan", "ssd_", k4.KERNELS_PER_CALL * n_mamba),
                  ("of which its chunk states", "ssd_chunk_state_kernel",
                   n_mamba),
@@ -1025,11 +1147,11 @@ def _model_run(arch: str, dtype: str, steps: int) -> None:
 
         (dec, ssd), busy, _ = _profile_in(run_step,
                                           ("::decode_kernel<", "ssd_"))
-        assert dec[1] == n_attn and ssd[1] == 0, ("decode step kernels", dec,
-                                                  ssd)
+        assert dec[1] == n_dec and ssd[1] == 0, ("decode step kernels", dec,
+                                                 ssd)
         k2_part = (f"decode attention {dec[0]:.3f} ms over {dec[1]} kernels "
-                   f"(one per attention layer), {dec[0] / step_ms:.1%} of "
-                   f"the step; " if n_attn else "")
+                   f"(one per attention call), {dec[0] / step_ms:.1%} of "
+                   f"the step; " if n_dec else "")
         print(f"[model] {cfg.name} bf16 decode step under torch.profiler: "
               f"{k2_part}all device activity {busy:.2f} ms, against the "
               f"{step_ms:.2f} ms of an unprofiled step on the host clock "
@@ -1046,14 +1168,14 @@ def _model_run(arch: str, dtype: str, steps: int) -> None:
           f"{BATCH * (steps + 1)} rows (near-ties only); launches flash "
           f"{counts[0]}{f' (all {body})' if body else ''} decode {counts[1]} "
           f"ssd_scan {counts[2]} (= "
-          f"{n_attn} flash and {n_mamba} ssd_scan per prefill, {n_attn} "
+          f"{n_pre} flash and {n_mamba} ssd_scan per prefill, {n_dec} "
           f"decode per decode step)")
     del params, ck, lk, lx
     torch.cuda.empty_cache()
 
 
 def phase_model() -> None:
-    for arch in (ARCH, SSM_ARCH, HYBRID_ARCH):
+    for arch in (ARCH, SSM_ARCH, HYBRID_ARCH, VLM_ARCH, ENCDEC_ARCH):
         _model_run(arch, "float32", 4)
         _model_run(arch, "bfloat16", STEPS)
 
@@ -1072,13 +1194,13 @@ def _graph_run(arch: str) -> None:
     graph, replayed, and held against the eager path; both timed in turns
     (replay, eager, eager, replay); one replay traced."""
     ex, cfg = real_executor_for(arch, prompt_len=PROMPT, new_tokens=STEPS)
-    n_attn, n_mamba = _path_counts(cfg)
+    n_pre, n_dec, n_mamba = _path_counts(cfg)
     t0 = time.perf_counter()
     ex.warmup(BATCH, 1)
     warm_s = time.perf_counter() - t0
     entry = ex._exec[BATCH]
-    want = {"flash": n_attn, "flash/wgmma": n_attn,
-            "decode": n_attn * STEPS, "ssd_scan": n_mamba}
+    want = {"flash": n_pre, "flash/wgmma": n_pre,
+            "decode": n_dec * STEPS, "ssd_scan": n_mamba}
     assert entry.launches == {k: v for k, v in want.items() if v}, \
         ("launches recorded in the capture", entry.launches, want)
     ex.run_step(BATCH, 1)
@@ -1101,8 +1223,8 @@ def _graph_run(arch: str) -> None:
     for which in ("replay", "eager", "eager", "replay"):
         times[which].append(_host_ms(replay if which == "replay"
                                      else run_eager))
-    names = (("flash", "flash_fwd_wgmma_kernel", n_attn),
-             ("decode", "::decode_kernel<", n_attn * STEPS),
+    names = (("flash", "flash_fwd_wgmma_kernel", n_pre),
+             ("decode", "::decode_kernel<", n_dec * STEPS),
              ("ssd_scan", "ssd_", k4.KERNELS_PER_CALL * n_mamba))
     kern, busy, span = _profile_in(replay, tuple(k for _, k, _ in names))
     counted = {label: n for (label, _, _), (_, n) in zip(names, kern)}
@@ -1127,7 +1249,7 @@ def _graph_run(arch: str) -> None:
 
 
 def phase_graphs() -> None:
-    for arch in (ARCH, SSM_ARCH, HYBRID_ARCH):
+    for arch in (ARCH, SSM_ARCH, HYBRID_ARCH, VLM_ARCH, ENCDEC_ARCH):
         _graph_run(arch)
 
 
@@ -1140,7 +1262,7 @@ def _serve(arch: str, max_bs: int, max_mtl: int, steps: int) -> dict:
     plus the executor's count of the graphs' replays."""
     t0 = time.perf_counter()
     ex, cfg = real_executor_for(arch, prompt_len=PROMPT, new_tokens=STEPS)
-    n_attn, n_mamba = _path_counts(cfg)
+    n_pre, n_dec, n_mamba = _path_counts(cfg)
     # DNNScaler's Profiler probes (1, 1), (m, 1) and (1, n), then scales bs
     # at mtl 1 or mtl at bs 1, so no step needs more than max(max_bs,
     # max_mtl) items.  Largest first: each smaller bucket's graph then
@@ -1194,7 +1316,7 @@ def _serve(arch: str, max_bs: int, max_mtl: int, steps: int) -> dict:
     assert s["throughput"] > 0 and math.isfinite(s["p95_s"]), s
     assert cs.misses == 0, ("bucket-cache misses after warm-up", cs.misses)
     assert cs.stale_hits == 0, ("stale buckets served", cs.stale_hits)
-    want = {"flash": n_attn * batches, "decode": n_attn * STEPS * batches,
+    want = {"flash": n_pre * batches, "decode": n_dec * STEPS * batches,
             "ssd_scan": n_mamba * batches}
     assert launches == want and any(launches.values()), (launches, want)
     per = ", ".join(f"{k} {v} ({v / s['items']:.3f} per served request)"
@@ -1202,20 +1324,27 @@ def _serve(arch: str, max_bs: int, max_mtl: int, steps: int) -> dict:
     print(f"[serving] kernel launches over the engine's run ({batches} "
           f"served batches = graph replays, {s['items']} served requests; "
           f"none outside a graph): {per}; per batch "
-          f"{n_attn} flash{' (all wgmma)' if n_attn else ''}, "
-          f"{n_attn * STEPS} decode, {n_mamba} ssd_scan")
+          f"{n_pre} flash{' (all wgmma)' if n_pre else ''}, "
+          f"{n_dec * STEPS} decode, {n_mamba} ssd_scan")
     del ex, ctrl, eng
     torch.cuda.empty_cache()
     return launches
 
 
-def phase_serving() -> dict:
-    """The main paths: SmolLM-360M (K1, K2), then Mamba2-1.3B (K4), each
-    with its own counts, at the same buckets (up to 256) and steps."""
-    smollm = _serve(ARCH, 64, 4, 40)
-    mamba = _serve(SSM_ARCH, 64, 4, 40)
-    return {"flash": smollm["flash"], "decode": smollm["decode"],
-            "ssd_scan": mamba["ssd_scan"]}
+def phase_serving() -> tuple:
+    """The main paths, each with its own counts: SmolLM-360M (K1, K2) and
+    Mamba2-1.3B (K4) at buckets up to 64 and 40 steps, then InternVL2-2B
+    and Whisper-medium (K1, K2) at buckets up to 16 and 10 steps.
+    Returns the kernels' launches on the first paths that reach them
+    (SmolLM, Mamba2), and every path's launches by model."""
+    by_path = {get_config(arch).name: _serve(arch, *knobs)
+               for arch, knobs in ((ARCH, (64, 4, 40)),
+                                   (SSM_ARCH, (64, 4, 40)),
+                                   (VLM_ARCH, (16, 4, 10)),
+                                   (ENCDEC_ARCH, (16, 4, 10)))}
+    smollm, mamba = (by_path[get_config(a).name] for a in (ARCH, SSM_ARCH))
+    return ({"flash": smollm["flash"], "decode": smollm["decode"],
+             "ssd_scan": mamba["ssd_scan"]}, by_path)
 
 
 def _tune_classes() -> list:
@@ -1363,6 +1492,7 @@ def main() -> None:
     phase_build()
     mark("build")
     rows = phase_kernels()
+    family = phase_family_shapes()
     rows["ssd_scan"] = phase_ssd()
     rows["paged"] = phase_paged()
     mark("kernels")
@@ -1370,15 +1500,20 @@ def main() -> None:
     mark("model")
     phase_graphs()
     mark("graphs")
-    launches = phase_serving()
+    launches, by_path = phase_serving()
     mark("serving")
     launches["paged"] = phase_autotune()
     mark("autotune")
     print("[done] seconds by phase: " + ", ".join(
         f"{name} {t - prev:.1f}" for (_, prev), (name, t)
         in zip(marks, marks[1:])))
-    kernels = [dict(rows[n], launches=launches[n])
-               for n in ("flash", "decode", "paged", "ssd_scan")]
+    by_path["tuning"] = {"paged": launches["paged"]}
+    for n, kern in (("flash", "K1"), ("decode", "K2")):
+        rows[n]["family_device_ms"] = {
+            name: t[2] for name, t in family.items() if t[0] == kern}
+    kernels = [dict(rows[n], launches=launches[n], launches_by_path={
+        path: counts[n] for path, counts in by_path.items()
+        if counts.get(n)}) for n in ("flash", "decode", "paged", "ssd_scan")]
     store.cleanup()
     print(f"[done] {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": kernels}))

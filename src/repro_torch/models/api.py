@@ -1,12 +1,14 @@
-"""Model API — counterpart of ``repro.models.api`` for the decoder-only models
-(dense, SSM and hybrid; MoE layers raise in ``transformer``).
+"""Model API — counterpart of ``repro.models.api``: dispatches on
+``cfg.is_encoder_decoder`` between the decoder-only models (dense, SSM,
+hybrid and the vision stub; MoE layers raise in ``transformer``) and the
+encoder-decoder (``encdec``).
 
   init_params(cfg, seed=0, device=None)             -> params dict
   params_from_jax(tree, device=None)                -> params dict
   prefill(params, batch, cfg, capacity)             -> (last_logits, cache)
   decode_step(params, cache, tokens, pos, cfg)      -> (logits, cache)
-  init_cache(cfg, batch, capacity, device=None)     -> cache list
-  make_batch(cfg, shape, seed=0, device=None)       -> {'tokens': ...}
+  init_cache(cfg, batch, capacity, device=None)     -> cache
+  make_batch(cfg, shape, seed=0, device=None)       -> {'tokens': ..., ...}
   generate(params, batch, cfg, steps)               -> (B, steps + 1) tokens
 
 ``device=None`` means the GPU; pass ``device="cpu"`` for the plain path on
@@ -20,25 +22,21 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import InputShape, ModelConfig
-from repro_torch.models import transformer
+from repro_torch.configs.base import InputShape, ModelConfig, torch_dtype
+from repro_torch.models import encdec, transformer
 
 
-def _decoder_only(cfg: ModelConfig) -> None:
-    """Encoder-decoder and frontend (audio, vision) models are not ported."""
-    if cfg.is_encoder_decoder or cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: only decoder-only text models are ported so far")
+def _model(cfg: ModelConfig):
+    return encdec if cfg.is_encoder_decoder else transformer
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random parameters drawn from a ``torch.Generator`` seeded with
     ``seed`` on the target device."""
-    _decoder_only(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return transformer.init_params(gen, cfg, dev)
+    return _model(cfg).init_params(gen, cfg, dev)
 
 
 def params_from_jax(tree, device=None):
@@ -57,49 +55,82 @@ def params_from_jax(tree, device=None):
 
 
 def prefill(params, batch, cfg: ModelConfig, capacity: int):
-    _decoder_only(cfg)
-    return transformer.prefill(params, batch, cfg, capacity)
+    return _model(cfg).prefill(params, batch, cfg, capacity)
 
 
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
                 windowed: bool = False):
-    _decoder_only(cfg)
+    if cfg.is_encoder_decoder:
+        return encdec.decode_step(params, cache, tokens, pos, cfg)
     return transformer.decode_step(params, cache, tokens, pos, cfg,
                                    windowed=windowed)
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
                windowed: bool = False, device=None):
-    _decoder_only(cfg)
+    dev = resolve_device(device)
+    if cfg.is_encoder_decoder:
+        return encdec.init_cache(cfg, batch, capacity, device=dev)
     return transformer.init_cache(cfg, batch, capacity, windowed=windowed,
-                                  device=resolve_device(device))
+                                  device=dev)
+
+
+def _text_len(cfg: ModelConfig, seq_len: int) -> int:
+    """Text-token length once stub frontend tokens are accounted for."""
+    if cfg.frontend == "vision_stub":
+        return max(seq_len - cfg.num_frontend_tokens, 1)
+    return seq_len
 
 
 def make_batch(cfg: ModelConfig, shape: InputShape, seed: int = 0,
                device=None) -> dict:
-    """Random prompt tokens (global_batch, seq_len) from a seeded generator."""
-    _decoder_only(cfg)
+    """A prefill batch of ``shape.seq_len`` input positions, as the
+    reference's ``make_batch``: prompt tokens (global_batch, text length),
+    and the stubbed frontend's embeddings at 0.02 scale in the config's
+    dtype: ``patch_embeds`` (global_batch, num_frontend_tokens, d), which
+    take that many of the positions, or ``audio_embeds`` (global_batch,
+    encoder_seq_len, d), the encoder's input.  Drawn from one generator
+    seeded with ``seed``, tokens first."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    tokens = torch.randint(0, cfg.vocab_size,
-                           (shape.global_batch, shape.seq_len),
-                           generator=gen, device=dev, dtype=torch.int32)
-    return {"tokens": tokens}
+    B = shape.global_batch
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (B, _text_len(cfg, shape.seq_len)),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    frontend = {"vision_stub": ("patch_embeds", cfg.num_frontend_tokens),
+                "audio_stub": ("audio_embeds", cfg.encoder_seq_len)}
+    if cfg.frontend in frontend:
+        name, n = frontend[cfg.frontend]
+        batch[name] = (torch.randn((B, n, cfg.d_model), generator=gen,
+                                   device=dev) * 0.02).to(torch_dtype(cfg))
+    return batch
+
+
+def prefill_len(batch) -> int:
+    """Positions a prefill of ``batch`` writes to the decoder's cache: the
+    prompt tokens plus any prepended patch embeddings (an encoder's frames
+    are not among them)."""
+    n = batch["tokens"].shape[1]
+    if "patch_embeds" in batch:
+        n += batch["patch_embeds"].shape[1]
+    return n
 
 
 def generate(params, batch, cfg: ModelConfig, steps: int) -> torch.Tensor:
     """One served request batch: prefill the prompts, then ``steps`` greedy
     decode steps.  Returns the (B, steps + 1) generated token ids.  The
+    cache and the first decode position come from the prefilled length
+    (``prefill_len``: for a vision model the patches count).  The
     position is made and advanced on the device (no copy from the host),
     so no step waits on the host and the whole request can be captured in
     a CUDA graph."""
-    tokens = batch["tokens"]
-    T = tokens.shape[1]
+    T = prefill_len(batch)
     logits, cache = prefill(params, batch, cfg, capacity=T + steps)
     tok = logits.argmax(-1).to(torch.int32)
     out = [tok]
-    pos = torch.full((), T, dtype=torch.int32, device=tokens.device)
+    pos = torch.full((), T, dtype=torch.int32, device=tok.device)
     for _ in range(steps):
         logits, cache = decode_step(params, cache, tok, pos, cfg)
         tok = logits.argmax(-1).to(torch.int32)

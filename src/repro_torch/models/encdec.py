@@ -1,0 +1,140 @@
+"""Encoder-decoder transformer (Whisper-style speech backbone).
+
+Counterpart of ``repro.models.encdec``.  The mel-spectrogram + conv
+feature extractor is stubbed as in the reference: the batch supplies
+precomputed frame embeddings (B, encoder_seq_len, d_model).  The encoder
+is bidirectional; the decoder has causal self-attention (RoPE, cached at
+decode) plus cross-attention over per-layer encoder K/V computed once at
+prefill and kept in the cache.  Parameters keep the reference's layout:
+``enc_layers`` and ``dec_layers`` stacked on a leading layer axis.  Forward
+only (prefill and decode); the train mode waits for the training port.
+
+The cache is the reference's: {'k','v': (L, B, KV, cap, hd), 'ck','cv':
+(L, B, S_enc, KV, hd)}.  Both modes write it in place.  On the kernel path
+(``kernel_impl="pallas"``) the encoder's self-attention and the prefill's
+cross-attention take the flash kernel with ``causal=False``, and the decode
+step's cross-attention the decode kernel over a transposed view of
+``ck``/``cv`` (``layers.cross_attn_apply``), where the reference runs its
+pure-JAX blockwise attention for all three.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import torch_dtype
+from repro_torch.models import layers as L
+from repro_torch.models import transformer
+from repro_torch.models.transformer import layer_params
+
+
+def init_params(gen: torch.Generator, cfg, device) -> dict:
+    dt = torch_dtype(cfg)
+    enc, dec = (cfg.encoder_layers,), (cfg.num_layers,)
+    params = {
+        "embed": L.normal(gen, (cfg.vocab_size, cfg.d_model), dt, device),
+        "enc_layers": {"attn": L.init_attn_block(gen, cfg, enc, dt, device),
+                       "mlp": L.init_mlp(gen, cfg, enc, dt, device)},
+        "dec_layers": {"attn": L.init_attn_block(gen, cfg, dec, dt, device),
+                       "cross": L.init_attn_block(gen, cfg, dec, dt, device,
+                                                  cross=True),
+                       "mlp": L.init_mlp(gen, cfg, dec, dt, device)},
+        "enc_norm": torch.ones((cfg.d_model,), dtype=dt, device=device),
+        "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.normal(gen, (cfg.d_model, cfg.vocab_size), dt,
+                                     device)
+    return params
+
+
+def encode(params, audio_embeds: torch.Tensor, cfg) -> torch.Tensor:
+    """audio_embeds: (B, S_enc, d), the stubbed frontend's output -> the
+    encoder's states."""
+    x = audio_embeds.to(torch_dtype(cfg))
+    positions = torch.arange(x.shape[1], device=x.device)
+    for i in range(cfg.encoder_layers):
+        lp = layer_params(params["enc_layers"], i)
+        x, _ = L.attn_block_apply(lp["attn"], x, cfg, causal=False,
+                                  positions=positions, mode="prefill")
+        x = L.mlp_apply(lp["mlp"], x, cfg)
+    return L.rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _decoder_trunk(params, x, cfg, cache, *, mode, enc_out=None,
+                   positions=None, pos=None):
+    """Runs the decoder layers, writing ``cache`` in place.
+
+    prefill: self-attention K/V of the T prompt positions at [0, T), and
+    each layer's cross-attention K/V of ``enc_out`` into ``ck``/``cv``.
+    decode: one token at slot ``pos`` (0-d int tensor on the device);
+    cross-attention reads ``ck``/``cv``."""
+    n = cfg.num_layers
+    if mode == "prefill":
+        T = x.shape[1]
+        for i in range(n):
+            lp = layer_params(params["dec_layers"], i)
+            x, kv = L.attn_block_apply(lp["attn"], x, cfg, mode="prefill",
+                                       positions=positions)
+            cache["k"][i, :, :, :T] = kv["k"].transpose(1, 2)
+            cache["v"][i, :, :, :T] = kv["v"].transpose(1, 2)
+            enc_kv = L.encode_kv(lp["cross"], enc_out, cfg)
+            cache["ck"][i] = enc_kv["k"]
+            cache["cv"][i] = enc_kv["v"]
+            x = L.cross_attn_apply(lp["cross"], x, enc_kv, cfg)
+            x = L.mlp_apply(lp["mlp"], x, cfg)
+        return x
+
+    positions = pos.reshape(1)
+    enc_last = torch.full((1,), cache["ck"].shape[2] - 1, dtype=torch.int32,
+                          device=x.device)
+    for i in range(n):
+        lp = layer_params(params["dec_layers"], i)
+        x, _ = L.attn_block_apply(lp["attn"], x, cfg, mode="decode",
+                                  cache={"k": cache["k"][i],
+                                         "v": cache["v"][i]},
+                                  cache_pos=pos, positions=positions)
+        x = L.cross_attn_apply(lp["cross"], x,
+                               {"k": cache["ck"][i], "v": cache["cv"][i]},
+                               cfg, enc_last=enc_last)
+        x = L.mlp_apply(lp["mlp"], x, cfg)
+    return x
+
+
+def init_cache(cfg, batch: int, capacity: int, device=None) -> dict:
+    dt = torch_dtype(cfg)
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    Ld, Se = cfg.num_layers, cfg.encoder_seq_len
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    return {"k": zeros(Ld, batch, KV, capacity, hd),
+            "v": zeros(Ld, batch, KV, capacity, hd),
+            "ck": zeros(Ld, batch, Se, KV, hd),
+            "cv": zeros(Ld, batch, Se, KV, hd)}
+
+
+def prefill(params, batch, cfg, capacity: int):
+    """batch: {'tokens': (B, T) int, 'audio_embeds': (B, S_enc, d)}.
+    Returns (last_logits (B,V) f32, cache) with cache capacity
+    ``capacity``."""
+    tokens = batch["tokens"]
+    enc_out = encode(params, batch["audio_embeds"], cfg)
+    x = params["embed"][tokens].to(torch_dtype(cfg))
+    B, T = tokens.shape
+    positions = torch.arange(T, device=x.device)
+    cache = init_cache(cfg, B, capacity, device=x.device)
+    h = _decoder_trunk(params, x, cfg, cache, mode="prefill", enc_out=enc_out,
+                       positions=positions)
+    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return transformer.logits_last(params, h[:, -1], cfg), cache
+
+
+def decode_step(params, cache, tokens, pos, cfg):
+    """tokens: (B,) int new token ids; pos: 0-d int tensor slot index.
+    Returns (logits (B,V) f32, cache), the cache updated in place."""
+    x = params["embed"][tokens[:, None]].to(torch_dtype(cfg))
+    h = _decoder_trunk(params, x, cfg, cache, mode="decode", pos=pos)
+    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return transformer.logits_last(params, h[:, 0], cfg), cache

@@ -1,4 +1,5 @@
-"""Shared neural-net layers: norms, RoPE, attention (flash + decode), MLP.
+"""Shared neural-net layers: norms, RoPE, attention (flash + decode,
+self- and cross-attention), MLP, and their random init.
 
 Counterpart of ``repro.models.layers``: plain functions over explicit
 parameter dictionaries in the JAX package's layout.  Attention is blockwise
@@ -23,6 +24,50 @@ NEG_INF = -2.0 ** 30  # large-negative that survives bf16 softmax math in f32
 # time.
 DEFAULT_BLOCK_Q = 256
 DEFAULT_BLOCK_K = 512
+
+
+# ---------------------------------------------------------------------------
+# Parameter init (random, from an explicit torch.Generator), each leaf stacked
+# on ``prefix``: ``(count,)`` for a stacked group, ``()`` for one block
+# ---------------------------------------------------------------------------
+def normal(gen, shape, dt, device):
+    return (torch.randn(shape, generator=gen, device=device) * 0.02).to(dt)
+
+
+def init_attn_block(gen, cfg, prefix, dt, device, *,
+                    cross: bool = False) -> dict:
+    """``cross``: a decoder's cross-attention block, which adds the
+    ``cross_norm`` its query side is normed by."""
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {
+        "wq": normal(gen, (*prefix, d, H, hd), dt, device),
+        "wk": normal(gen, (*prefix, d, KV, hd), dt, device),
+        "wv": normal(gen, (*prefix, d, KV, hd), dt, device),
+        "wo": normal(gen, (*prefix, H, hd, d), dt, device),
+        "norm": torch.ones((*prefix, d), dtype=dt, device=device),
+    }
+    if cfg.attention_bias:
+        p["bq"] = torch.zeros((*prefix, H, hd), dtype=dt, device=device)
+        p["bk"] = torch.zeros((*prefix, KV, hd), dtype=dt, device=device)
+        p["bv"] = torch.zeros((*prefix, KV, hd), dtype=dt, device=device)
+    if cfg.post_block_norm:
+        p["post_norm"] = torch.ones((*prefix, d), dtype=dt, device=device)
+    if cross:
+        p["cross_norm"] = torch.ones((*prefix, d), dtype=dt, device=device)
+    return p
+
+
+def init_mlp(gen, cfg, prefix, dt, device) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    p = {
+        "wi": normal(gen, (*prefix, d, f), dt, device),
+        "wg": normal(gen, (*prefix, d, f), dt, device),
+        "wo": normal(gen, (*prefix, f, d), dt, device),
+        "norm": torch.ones((*prefix, d), dtype=dt, device=device),
+    }
+    if cfg.post_block_norm:
+        p["post_norm"] = torch.ones((*prefix, d), dtype=dt, device=device)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -250,6 +295,10 @@ def attn_block_apply(
 ):
     """Returns (y, new_kv): new_kv is (k, v) for prefill and None for decode.
 
+    Prefill with ``causal=False`` is the encoder's bidirectional pass over
+    the whole sequence (the reference's ``mode="train"`` there); on the
+    kernel path it takes the flash kernel as the causal prefill does.
+
     Decode writes the new token's K/V into ``cache`` IN PLACE, at slot
     ``cache_pos`` (``cache_pos % capacity`` for a ring), before attending.
     The reference instead copied each layer's whole cache with a dynamic
@@ -290,10 +339,10 @@ def attn_block_apply(
                                  exclude_slot=slot[0] if ring else None)
         o = o[:, None]                                  # (B, 1, H, hd)
         new_kv = None
-    elif mode == "prefill" and cfg.kernel_impl == "pallas" and causal:
+    elif mode == "prefill" and cfg.kernel_impl == "pallas":
         from repro_torch.kernels.flash_attention.ops import \
             flash_attention as kernel_flash
-        o = kernel_flash(q, k, v, causal=True, window=window,
+        o = kernel_flash(q, k, v, causal=causal, window=window,
                          logit_cap=cfg.attn_logit_softcap)
         new_kv = {"k": k, "v": v}
     else:
@@ -305,6 +354,53 @@ def attn_block_apply(
     if cfg.post_block_norm:
         y = rmsnorm(y, p["post_norm"], cfg.norm_eps)
     return x + y, new_kv
+
+
+def cross_attn_apply(p: dict, x: torch.Tensor, enc_kv: dict, cfg, *,
+                     enc_last: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Cross-attention over precomputed encoder K/V (no positions, no mask).
+    enc_kv: {'k','v'}: (B, S_enc, KV, hd).
+
+    On the kernel path a prompt goes to the flash kernel with
+    ``causal=False``, and one decode token to the decode kernel, which
+    reads the keys through a (B, KV, S_enc, hd) view of the cache, no
+    copy, at position ``S_enc - 1``, where every key is valid.
+    ``enc_last`` holds that position as a (1,) int32 tensor on the device,
+    made once per step by the caller (a CUDA-graph capture takes no copy
+    from the host); None makes it here.  The plain path runs the blockwise
+    ``flash_attention``, as the reference does for both."""
+    h = rmsnorm(x, p["cross_norm"], cfg.norm_eps)
+    q = _proj_in(h, p["wq"])
+    if cfg.attention_bias:
+        q = q + p["bq"]
+    k, v = enc_kv["k"], enc_kv["v"]
+    cap = cfg.attn_logit_softcap
+    if cfg.kernel_impl != "pallas":
+        o = flash_attention(q, k, v, causal=False, logit_cap=cap)
+    elif x.shape[1] == 1:
+        from repro_torch.kernels.decode_attention.ops import \
+            decode_attention_kvmajor
+        if enc_last is None:
+            enc_last = torch.full((1,), k.shape[1] - 1, dtype=torch.int32,
+                                  device=x.device)
+        o = decode_attention_kvmajor(q[:, 0], k.transpose(1, 2),
+                                     v.transpose(1, 2), enc_last,
+                                     logit_cap=cap)[:, None]
+    else:
+        from repro_torch.kernels.flash_attention.ops import \
+            flash_attention as kernel_flash
+        o = kernel_flash(q, k, v, causal=False, logit_cap=cap)
+    return x + _proj_out(o, p["wo"])
+
+
+def encode_kv(p: dict, enc_out: torch.Tensor, cfg) -> dict:
+    """Cross-attention K/V (B, S_enc, KV, hd) of the encoder's output."""
+    k = _proj_in(enc_out, p["wk"])
+    v = _proj_in(enc_out, p["wv"])
+    if cfg.attention_bias:
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return {"k": k, "v": v}
 
 
 # ---------------------------------------------------------------------------

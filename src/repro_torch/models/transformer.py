@@ -1,7 +1,9 @@
-"""Decoder-only transformer assembly for the dense, SSM and hybrid groups.
+"""Decoder-only transformer assembly for the dense, SSM, hybrid and VLM
+models.
 
 Counterpart of ``repro.models.transformer`` for the ``attn``, ``swa``,
-``local_global``, ``mamba`` and ``hybrid_super`` groups.  Each group's
+``local_global``, ``mamba`` and ``hybrid_super`` groups, with the vision
+stub's patch embeddings prepended (``embed_tokens``).  Each group's
 parameters keep the reference's layout, stacked on a leading layer axis
 (Zamba2's Mamba stack on two: super-block, then block; its shared block
 unstacked); a Python loop over that axis takes the place of ``lax.scan``.
@@ -33,48 +35,11 @@ def _check_kind(kind: str) -> None:
 # ---------------------------------------------------------------------------
 # Parameter init (random, from an explicit torch.Generator)
 # ---------------------------------------------------------------------------
-def _normal(gen, shape, dt, device):
-    return (torch.randn(shape, generator=gen, device=device) * 0.02).to(dt)
-
-
-def _init_attn_block(gen, cfg, prefix, dt, device) -> dict:
-    """Stacked on ``prefix``: ``(count,)``, or ``()`` for Zamba2's shared
-    block."""
-    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    p = {
-        "wq": _normal(gen, (*prefix, d, H, hd), dt, device),
-        "wk": _normal(gen, (*prefix, d, KV, hd), dt, device),
-        "wv": _normal(gen, (*prefix, d, KV, hd), dt, device),
-        "wo": _normal(gen, (*prefix, H, hd, d), dt, device),
-        "norm": torch.ones((*prefix, d), dtype=dt, device=device),
-    }
-    if cfg.attention_bias:
-        p["bq"] = torch.zeros((*prefix, H, hd), dtype=dt, device=device)
-        p["bk"] = torch.zeros((*prefix, KV, hd), dtype=dt, device=device)
-        p["bv"] = torch.zeros((*prefix, KV, hd), dtype=dt, device=device)
-    if cfg.post_block_norm:
-        p["post_norm"] = torch.ones((*prefix, d), dtype=dt, device=device)
-    return p
-
-
-def _init_mlp(gen, cfg, prefix, dt, device) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
-    p = {
-        "wi": _normal(gen, (*prefix, d, f), dt, device),
-        "wg": _normal(gen, (*prefix, d, f), dt, device),
-        "wo": _normal(gen, (*prefix, f, d), dt, device),
-        "norm": torch.ones((*prefix, d), dtype=dt, device=device),
-    }
-    if cfg.post_block_norm:
-        p["post_norm"] = torch.ones((*prefix, d), dtype=dt, device=device)
-    return p
-
-
 def _init_dense_stack(gen, cfg, prefix, dt, device) -> dict:
     if cfg.num_experts:
         raise NotImplementedError("MoE layers are not ported to repro_torch yet")
-    return {"attn": _init_attn_block(gen, cfg, prefix, dt, device),
-            "mlp": _init_mlp(gen, cfg, prefix, dt, device)}
+    return {"attn": L.init_attn_block(gen, cfg, prefix, dt, device),
+            "mlp": L.init_mlp(gen, cfg, prefix, dt, device)}
 
 
 def init_params(gen: torch.Generator, cfg, device) -> dict:
@@ -95,12 +60,16 @@ def init_params(gen: torch.Generator, cfg, device) -> dict:
         else:
             groups.append(_init_dense_stack(gen, cfg, (count,), dt, device))
     params = {
-        "embed": _normal(gen, (cfg.vocab_size, cfg.d_model), dt, device),
+        "embed": L.normal(gen, (cfg.vocab_size, cfg.d_model), dt, device),
         "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=device),
         "groups": groups,
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = _normal(gen, (cfg.d_model, cfg.vocab_size), dt, device)
+        params["lm_head"] = L.normal(gen, (cfg.d_model, cfg.vocab_size), dt,
+                                     device)
+    if cfg.frontend == "vision_stub":
+        params["vis_proj"] = L.normal(gen, (cfg.d_model, cfg.d_model), dt,
+                                      device)
     return params
 
 
@@ -282,10 +251,18 @@ def run_group_decode(gp, x, cfg, kind, cache, *, pos, windowed=False):
 # ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
-def embed_tokens(params, tokens, cfg):
+def embed_tokens(params, tokens, cfg, patch_embeds=None):
+    """Token embeddings (B, T, d); ``patch_embeds`` (B, P, d), the stubbed
+    vision frontend's output, are projected by ``vis_proj`` and prepended,
+    so the sequence is P + T positions long."""
     x = params["embed"][tokens].to(torch_dtype(cfg))
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if patch_embeds is not None:
+        pe = patch_embeds.to(x.dtype)
+        if "vis_proj" in params:
+            pe = pe @ params["vis_proj"]
+        x = torch.cat([pe, x], dim=1)
     return x
 
 
@@ -305,9 +282,11 @@ def logits_last(params, h_last, cfg):
 # Public entry points
 # ---------------------------------------------------------------------------
 def prefill(params, batch, cfg, capacity: int):
-    """Returns (last_logits (B,V) f32, cache) with cache capacity ``capacity``."""
-    tokens = batch["tokens"]
-    x = embed_tokens(params, tokens, cfg)
+    """Returns (last_logits (B,V) f32, cache) with cache capacity ``capacity``.
+    batch: {'tokens': (B, T) int, optional 'patch_embeds': (B, P, d)}; the
+    cache then holds P + T positions."""
+    x = embed_tokens(params, batch["tokens"], cfg,
+                     patch_embeds=batch.get("patch_embeds"))
     B, T = x.shape[0], x.shape[1]
     positions = torch.arange(T, device=x.device)
     cache = init_cache(cfg, B, capacity, device=x.device)

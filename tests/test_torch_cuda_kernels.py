@@ -62,6 +62,7 @@ DECODE_CASES = [
     (1, 640, 12, 3, 64, 633, 128, None),
     (2, 384, 10, 5, 32, 65, None, 40.0),
     (1, 256, 8, 2, 64, 0, None, None),
+    (2, 1500, 16, 16, 64, 1499, None, None),   # Whisper's cross-attention
 ]
 DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}
 SSD_CASES = [
@@ -122,7 +123,13 @@ WGMMA_CASES = (
        (2, 100, 300, 8, 8, 64, True, None, None, 200, 64, 128),   # Tk > Tq
        (2, 130, 400, 16, 2, 128, True, None, 50.0, 270, 128, 64),
        (2, 200, 200, 6, 2, 64, False, None, None, 0, 64, 64),     # bidirectional
-       (2, 384, 384, 6, 2, 64, True, 64, None, 0, None, None)])   # default tile
+       (2, 384, 384, 6, 2, 64, True, 64, None, 0, None, None),    # default tile
+       # Whisper's encoder (1500 frames: ragged at both tiles on both
+       # sides) and its prefill cross-attention (Tq 200 against Tk 1500),
+       # bidirectional, G 1; InternVL2's G 2 at hd 128
+       (1, 1500, 1500, 4, 4, 64, False, None, None, 0, None, None),
+       (2, 200, 1500, 4, 4, 64, False, None, None, 0, 128, 128),
+       (2, 512, 512, 16, 8, 128, True, None, None, 0, None, None)])
 
 
 def _bodies_run(fn):
@@ -276,14 +283,20 @@ def test_flash_launcher_constants_match_the_library(gpu):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", DECODE_CASES, ids=str)
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("layout", ["bskd", "kvmajor"])
+@pytest.mark.parametrize("layout", ["bskd", "kvmajor", "kvmajor_view"])
 def test_decode_kernel_matches_plain(gpu, case, dtype, layout):
+    """``kvmajor_view``: the kv-major wrapper on the transposed view of a
+    (B, S, KV, hd) cache, as a decode step's cross-attention reads the
+    encoder's K/V."""
     B, S, H, KV, hd, pos, window, cap = case
     q, k, v = _inputs(1, [(B, H, hd), (B, S, KV, hd), (B, S, KV, hd)],
                       dtype, gpu)
     pos_t = torch.tensor(pos, dtype=torch.int32, device=gpu)
     kw = dict(window=window, logit_cap=cap)
-    if layout == "kvmajor":
+    if layout == "kvmajor_view":
+        out = dec_ops.decode_attention_kvmajor(
+            q, k.transpose(1, 2), v.transpose(1, 2), pos_t, **kw)
+    elif layout == "kvmajor":
         out = dec_ops.decode_attention_kvmajor(
             q, k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
             pos_t, **kw)

@@ -27,7 +27,8 @@ from repro_torch.serving import executor as executor_mod
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.executor import RealExecutor
 
-TINY_ARCHS = ("smollm_360m", "mamba2_1p3b", "zamba2_1p2b")
+TINY_ARCHS = ("smollm_360m", "mamba2_1p3b", "zamba2_1p2b", "internvl2_2b",
+              "whisper_medium")
 
 
 class FakeGraph:
@@ -338,7 +339,7 @@ def test_replayed_launches_count_every_replay(monkeypatch):
 def _generate_with_a_host_position(params, batch, cfg, steps):
     """``generate`` as it was, its position copied from the host."""
     tokens = batch["tokens"]
-    T = tokens.shape[1]
+    T = api.prefill_len(batch)
     logits, cache = api.prefill(params, batch, cfg, capacity=T + steps)
     tok = logits.argmax(-1).to(torch.int32)
     out = [tok]
@@ -376,6 +377,42 @@ def test_generate_copies_nothing_from_the_host(arch, monkeypatch):
 
     monkeypatch.setattr(torch, "tensor", no_host_data)
     assert api.generate(params, batch, cfg, 3).shape == (2, 4)
+
+
+@pytest.mark.parametrize("arch,leaf", [("internvl2_2b", "patch_embeds"),
+                                       ("whisper_medium", "audio_embeds")])
+@pytest.mark.parametrize("mode", ("eager", "graphs"))
+def test_frontend_leaves_are_warmed_sized_and_staged(arch, leaf, mode,
+                                                     monkeypatch):
+    """``serve``'s executor for a model with a stubbed frontend: the
+    per-item bytes count the frontend's embeddings, the bucket's warm-up
+    (and capture) takes them, and with ``donate_batch`` every step reads a
+    fresh copy of the host template, embeddings included."""
+    fake = FakeGraphs()
+    if mode == "graphs":
+        monkeypatch.setattr(executor_mod, "graph_capturer",
+                            lambda device: fake)
+    ex, cfg = real_executor_for(arch, tiny=True, device="cpu", prompt_len=32,
+                                new_tokens=2)
+    one = ex.make_batch(1)
+    assert set(one) == {"tokens", leaf}
+    assert ex._batch_bytes_per_item() == executor_mod.ACT_MULT * sum(
+        x.numel() * x.element_size() for x in one.values())
+    seen = []
+    fn = ex.fn
+    ex.fn = lambda p, b: seen.append(b) or fn(p, b)
+    ex.donate_batch = True
+    ex.run_step(3, 1)
+    entry = ex._exec[ex.bucket(3)]
+    assert fake.captures == (mode == "graphs")
+    assert entry.host[leaf].shape == (4, *one[leaf].shape[1:])
+    entry.batch[leaf].zero_()           # a step must restore the template
+    before = len(seen)
+    ex.run_step(3, 1)
+    assert len(seen) == before + 1
+    staged = seen[-1]
+    assert torch.equal(staged[leaf], entry.host[leaf])
+    assert (staged is entry.batch) == (mode == "graphs")
 
 
 # ---------------------------------------------------------------------------

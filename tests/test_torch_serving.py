@@ -113,3 +113,30 @@ def test_fits_matches_reference_formula(kv_bytes):
         for bs in (1, 3, 8, 33, 100, 700):
             for mtl in (1, 2, 7):
                 assert et.fits(bs, mtl) == ej.fits(bs, mtl), (mem, bs, mtl)
+
+
+@pytest.mark.parametrize("arch", ["internvl2-2b", "whisper-medium"])
+def test_serve_cli_serves_the_frontend_models(arch, monkeypatch, capsys,
+                                              tmp_path):
+    """``serve --arch ... --tiny --real --device cpu`` serves the vision stub
+    and the encoder-decoder: the controller settles on knobs inside its
+    bounds, throughput is positive and no stale bucket is served."""
+    import re
+    import sys
+
+    from repro_torch.launch import serve
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--arch", arch, "--tiny", "--real", "--device", "cpu",
+        "--prompt-len", "32", "--new-tokens", "4", "--max-bs", "16",
+        "--steps", "20", "--autotune-cache-dir", str(tmp_path)])
+    serve.main()
+    out = capsys.readouterr().out
+    name = arch + "-tiny"
+    steady = re.search(rf"{name} \(real, cpu\): controller=dnnscaler "
+                       r"approach=\w+ steady\(bs=(\d+), mtl=(\d+)\)", out)
+    assert steady, out
+    bs, mtl = map(int, steady.groups())
+    assert 1 <= bs <= 16 and 1 <= mtl <= 4
+    thr = re.search(r"throughput ([\d.]+)/s", out)
+    assert thr and float(thr.group(1)) > 0, out
+    assert re.search(r"stale evictions 0 stale hits 0", out), out
