@@ -26,15 +26,18 @@ stale ``.profile_store/`` in the working directory changes nothing:
      eager (20 calls between two CUDA events, the wrapper's host work
      included) and on the device alone (the same 20 calls captured once in
      a CUDA graph and replayed between two events).  K1 and K2 also at the
-     call shapes of InternVL2-2B (hd 128, G 2) and Whisper-medium (hd 64,
-     G 1: its bidirectional encoder over 1500 frames, its decoder's
-     self-attention, its cross-attention at prefill through K1 and at
-     decode through K2 over a transposed view of the encoder's cache),
-     each held against its plain version in both dtypes with the body
-     asserted, and timed on the device alone beside SDPA with its bound;
+     call shapes of InternVL2-2B (hd 128, G 2), Qwen3-MoE-30B-A3B (hd 128,
+     G 8) and Whisper-medium (hd 64, G 1: its bidirectional encoder over
+     1500 frames, its decoder's self-attention, its cross-attention at
+     prefill through K1 and at decode through K2 over a transposed view of
+     the encoder's cache), each held against its plain version in both
+     dtypes with the body asserted, and timed on the device alone beside
+     SDPA with its bound;
   4. model: full-width SmolLM-360M, Mamba2-1.3B, Zamba2-1.2B, InternVL2-2B
-     (a prompt of 256 patch embeddings and 256 text tokens) and
-     Whisper-medium (1500 encoder frames, a 512-token decoder prompt),
+     (a prompt of 256 patch embeddings and 256 text tokens),
+     Whisper-medium (1500 encoder frames, a 512-token decoder prompt) and
+     last Qwen3-MoE-30B-A3B (48 layers, 128 experts, top-8; its float32
+     check cut to 8 layers, as all 48 are 122 GB in float32),
      random weights from a seed, prefill 8 x 512 and decode steps through
      the kernels, held against the plain path on the card (float32 at 1e-4;
      bf16 at the JAX bounds or twice the plain path's own rounding floor,
@@ -45,8 +48,13 @@ stale ``.profile_store/`` in the working directory changes nothing:
      kernels' time and count (one decode kernel per attention call: 24
      self and 24 cross per Whisper step; two SSD-scan kernels per Mamba
      block; Whisper's 72 flash kernels per prefill: 24 encoder, 24 self,
-     24 cross), and the device's idle share;
-  5. graphs: the same five models (bf16, 8 x 512 + 32 steps) through
+     24 cross), and the device's idle share; for Qwen3-MoE also its
+     init's peak memory (under its parameters' bytes + 2 GB), the routing
+     decisions that differ between the two paths at each MoE layer, a
+     logits row past its bound passed only as a stated routing near-tie
+     (``ROUTE_DRIFT``), and the MoE blocks' share of the traced prefill and
+     step beside their bounds (the step's: reading every expert);
+  5. graphs: the same six models (bf16, 8 x 512 + 32 steps) through
      ``serve``'s executor, which captures each batch bucket's request
      (``api.generate``) once in a CUDA graph: the replayed tokens equal
      the eager path's on the same batch; one replayed and one eager
@@ -60,8 +68,9 @@ stale ``.profile_store/`` in the working directory changes nothing:
      1-D scaler tunes it; estimator seeded as ``serve`` seeds it) +
      ServingEngine at full width, SmolLM-360M (flash
      + decode attention) and then Mamba2-1.3B (SSD scan), at buckets up to
-     64 and 40 steps, then InternVL2-2B and Whisper-medium (flash + decode
-     attention) at buckets up to 16 and 10 steps, each bucket
+     64 and 40 steps, then InternVL2-2B, Whisper-medium and Qwen3-MoE-30B-A3B
+     (flash + decode attention) at buckets up to 16 and 10 steps, each
+     bucket
      captured in a CUDA graph at warm-up and replayed by every step, with
      zero bucket-cache misses and stale hits after warm-up and its
      kernels' launches over the engine's run counted from the replays
@@ -78,14 +87,17 @@ stale ``.profile_store/`` in the working directory changes nothing:
      own tile; then a short SmolLM serving run on the tuned cache with
      zero misses and zero stale hits after warm-up.
 
-Prints the kernels' JSON line (each kernel's launches on the first served
-path that reaches it, and by path in ``launches_by_path``), the card's
-name and power limit, and last the device JSON line.  Exits non-zero
-without a CUDA device.
+Every phase runs Qwen3-MoE last, its 61 GB of weights made after the
+model before it is freed, and prints the card's free memory before its
+init; running out of memory fails the script.  Prints the kernels' JSON
+line (each kernel's launches on the first served path that reaches it, and
+by path in ``launches_by_path``), the card's name and power limit, and last
+the device JSON line.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -125,7 +137,7 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan as k4  # noqa: E402
 from repro_torch.launch.serve import (make_controller,  # noqa: E402
                                       real_executor_for)
-from repro_torch.models import api, layers  # noqa: E402
+from repro_torch.models import api, layers, moe  # noqa: E402
 from repro_torch.models.mamba import ssd_chunked  # noqa: E402
 from repro_torch.perf import autotune  # noqa: E402
 from repro_torch.perf.roofline import (BF16_FLOPS, F32_FLOPS,  # noqa: E402
@@ -233,6 +245,16 @@ SSM_ARCH, HYBRID_ARCH = "mamba2_1p3b", "zamba2_1p2b"
 # the vision stub (256 of a prompt's 512 positions are patches) and the
 # encoder-decoder (1500 encoder frames and a 512-token decoder prompt)
 VLM_ARCH, ENCDEC_ARCH = "internvl2_2b", "whisper_medium"
+# the MoE model, run last in every phase (its 61 GB of bf16 weights leave
+# about 19 GB of the card), and its float32 check cut to 8 of its 48
+# layers (all 48 are 122 GB in float32)
+MOE_ARCH, MOE_F32_LAYERS = "qwen3_moe_30b_a3b", 8
+# a logits row past its bound passes as a routing near-tie only if, at the
+# first layer where its routing differs between the two paths, no router
+# logit of its routing group has drifted by more than this (the JAX
+# 2-layer prefill bound) and every top-k flip there lies within twice that
+# drift (``_routing_diff``)
+ROUTE_DRIFT = 3e-2
 
 
 def _rand(gen, shape, dtype, scale=0.5):
@@ -303,24 +325,30 @@ def _wall_ms(fn, iters: int = 3) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def _profile_in(fn, kernels: tuple) -> tuple:
+def _profile_in(fn, kernels: tuple, moe_split: bool = False) -> tuple:
     """From torch.profiler's trace of the card over one run of ``fn``: the
     ms and count of the device's kernels whose names contain each string of
-    ``kernels``, the ms of all its activity, and the ms from the first
-    activity's start to the last one's end.  A trace with no device time
-    fails."""
+    ``kernels``, the ms of all its activity, the ms from the first
+    activity's start to the last one's end, and with ``moe_split`` the MoE
+    blocks' split (``_moe_split``, the run under ``_moe_ranges``; else
+    None).  A trace with no device time fails."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        with _moe_ranges() if moe_split else contextlib.nullcontext():
+            fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # a record_function range also leaves its span on the device's
+    # timeline (a GPU user annotation), which is no device activity
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and e.name not in MOE_RANGES]
     assert dev, "torch.profiler's trace holds no device time"
     ms = lambda es: sum(e.time_range.elapsed_us() for e in es) / 1e3  # noqa
     found = [[e for e in dev if name in e.name] for name in kernels]
     span = (max(e.time_range.end for e in dev)
             - min(e.time_range.start for e in dev)) / 1e3
-    return [(ms(es), len(es)) for es in found], ms(dev), span
+    return ([(ms(es), len(es)) for es in found], ms(dev), span,
+            _moe_split(prof) if moe_split else None)
 
 
 def _bound(nbytes: float, *work) -> tuple:
@@ -586,35 +614,40 @@ def phase_kernels() -> dict:
 
 
 def _family_shapes() -> tuple:
-    """The call shapes InternVL2-2B's and Whisper-medium's paths give K1
-    and K2 at 8 x 512 positions and 32 steps, by name: K1 cases (B, Tq,
-    Tk, H, KV, hd, causal, window, cap), K2 cases ((B, S, H, KV, hd, pos,
-    window, cap), whether the cache is read through a transposed view)."""
-    vlm, enc = get_config(VLM_ARCH), get_config(ENCDEC_ARCH)
+    """The call shapes InternVL2-2B's, Whisper-medium's and
+    Qwen3-MoE-30B-A3B's paths give K1 and K2 at 8 x 512 positions and 32
+    steps, by name: K1 cases (B, Tq, Tk, H, KV, hd, causal, window, cap),
+    K2 cases ((B, S, H, KV, hd, pos, window, cap), whether the cache is
+    read through a transposed view)."""
+    vlm, enc, mo = (get_config(a) for a in (VLM_ARCH, ENCDEC_ARCH, MOE_ARCH))
     S, Se = PROMPT + STEPS, enc.encoder_seq_len
     gv = (vlm.num_heads, vlm.num_kv_heads, vlm.head_dim)
     ge = (enc.num_heads, enc.num_kv_heads, enc.head_dim)
+    gm = (mo.num_heads, mo.num_kv_heads, mo.head_dim)
     flash = {
         "internvl2 prefill": (BATCH, PROMPT, PROMPT, *gv, True, None, None),
         "whisper encoder": (BATCH, Se, Se, *ge, False, None, None),
         "whisper self prefill": (BATCH, PROMPT, PROMPT, *ge, True, None,
                                  None),
         "whisper cross prefill": (BATCH, PROMPT, Se, *ge, False, None, None),
+        "qwen3-moe prefill": (BATCH, PROMPT, PROMPT, *gm, True, None, None),
     }
     decode = {
         "internvl2 decode": ((BATCH, S, *gv, S - 1, None, None), False),
         "whisper self decode": ((BATCH, S, *ge, S - 1, None, None), False),
         "whisper cross decode": ((BATCH, Se, *ge, Se - 1, None, None), True),
+        "qwen3-moe decode": ((BATCH, S, *gm, S - 1, None, None), False),
     }
     return flash, decode
 
 
 def phase_family_shapes() -> dict:
-    """K1 and K2 at the call shapes of InternVL2-2B (hd 128, G 2) and
-    Whisper-medium (hd 64, G 1; 1500 encoder frames, not a multiple of
-    either wgmma tile; non-causal encoder and cross-attention; the decode
-    step's cross-attention through a transposed view of the (B, S_enc, KV,
-    hd) cache), each held against its plain version in float32 and
+    """K1 and K2 at the call shapes of InternVL2-2B (hd 128, G 2),
+    Qwen3-MoE-30B-A3B (hd 128, G 8) and Whisper-medium (hd 64, G 1; 1500
+    encoder frames, not a multiple of either wgmma tile; non-causal
+    encoder and cross-attention; the decode step's cross-attention through
+    a transposed view of the (B, S_enc, KV, hd) cache), each held against
+    its plain version in float32 and
     bfloat16 with the body asserted, then timed in bf16 on the device
     alone beside SDPA at the same shape, with its bound."""
     gen = torch.Generator(device=DEV)
@@ -961,20 +994,151 @@ def _bound_used(got, want, atol, rtol) -> float:
     return (((got - want).abs() - rtol * want.abs()).max() / atol).item()
 
 
-def _check_logits(got, want, atol, rtol, what) -> int:
+def _check_logits(got, want, atol, rtol, what, routing=None) -> tuple:
     """Logits agree within atol + rtol |want|; an argmax that differs must
     be a near-tie of the plain path (its logit at the kernel path's choice
-    within atol of its max).  Returns the number of differing rows."""
+    within atol of its max).  ``routing`` (an MoE model's, from
+    ``_routing_diff``): a row past the bound, or whose argmax differs off
+    a near-tie, passes only as a routing near-tie (``ROUTE_DRIFT``), which
+    is printed with its top-k margin.  Returns the numbers of rows whose
+    argmax differs and of rows passed as routing near-ties."""
     assert got.shape == want.shape and torch.isfinite(got).all(), what
-    used = _bound_used(got, want, atol, rtol)
-    assert used <= 1.0, (what, _maxerr(got, want), used)
+    used = (((got - want).abs() - rtol * want.abs()).amax(-1) / atol)
     a_got, a_want = got.argmax(-1), want.argmax(-1)
     diff = a_got != a_want
-    if diff.any():
-        top = want.max(-1).values
-        at_got = want.gather(-1, a_got[:, None])[:, 0]
-        assert ((top - at_got)[diff] <= atol).all(), (what, "argmax")
-    return int(diff.sum())
+    top = want.max(-1).values
+    at_got = want.gather(-1, a_got[:, None])[:, 0]
+    off = (used > 1.0) | (diff & (top - at_got > atol))
+    ties = 0
+    for row in off.nonzero()[:, 0].tolist():
+        first = (routing or {}).get(row)
+        assert first is not None, (what, "row", row, _maxerr(got[row],
+                                                               want[row]),
+                                   float(used[row]), "argmax", bool(diff[row]))
+        layer, margin, drift = first
+        assert drift <= ROUTE_DRIFT and margin <= 2 * drift, \
+            (what, "row", row, "routing differs first at layer", layer,
+             "top-k margin", margin, "router-logit drift", drift)
+        ties += 1
+        print(f"[model] {what}: row {row} past the bound "
+              f"({float(used[row]):.2f} of it, max |dlogit| "
+              f"{_maxerr(got[row], want[row]):.3e}, "
+              f"argmax {'differs' if diff[row] else 'equal'}) passes as a "
+              f"routing near-tie: its routing first differs at MoE layer "
+              f"{layer}, where the largest top-k margin of a flipped token is "
+              f"{margin:.3e} (the least gap between neighbours among the "
+              f"plain path's k + 1 largest router logits) and the largest "
+              f"router-logit drift between the paths {drift:.3e} (rule: "
+              f"drift <= {ROUTE_DRIFT:g} and margin <= 2 drift)")
+    return int(diff.sum()), ties
+
+
+@contextlib.contextmanager
+def _routing_recorded():
+    """While open, each MoE routing call appends to the yielded list its
+    router logits (tokens, E) float32 and its kept (token, expert) slots
+    (tokens, E) bool, tokens in (sequence, position) order, one entry per
+    MoE layer in order."""
+    calls = []
+    route = moe._route
+
+    def recorded(hg, p, cfg, C):
+        out = route(hg, p, cfg, C)
+        calls.append((moe.router_logits(hg, p).flatten(0, 1),
+                      (out[0].sum(-1) > 0).flatten(0, 1)))
+        return out
+
+    moe._route = recorded
+    try:
+        yield calls
+    finally:
+        moe._route = route
+
+
+def _routing_diff(plain, kern, B: int, K: int) -> tuple:
+    """Two recorded runs (``_routing_recorded``) of one batch of B
+    sequences.  Per MoE layer: the tokens whose top-K experts differ, as a
+    set or in slot order (flips), and those whose kept slots differ (a
+    flip, or a capacity drop a flip moved).  Per sequence whose routing
+    differs, at the first layer where it does: (layer, the largest top-K
+    margin of a flipped token of its routing group, and the largest drift
+    of a router logit between the runs over the group).  A token's top-K
+    margin is the least gap between neighbours among the plain run's K + 1
+    largest router logits: no flip is possible while it exceeds twice the
+    drift.  A sequence's routing group is the sequence itself at prefill
+    (a 256-token group never spans two) and the batch at decode."""
+    per_layer, first = [], {}
+    for layer, ((lx, kx), (lk, kk)) in enumerate(zip(plain, kern)):
+        vals, idx = lx.topk(K + 1, dim=-1)
+        flip = (idx[:, :K] != lk.topk(K, dim=-1).indices).any(-1)
+        moved = (kx != kk).any(-1)
+        per_layer.append((int(flip.sum()), int(moved.sum())))
+        margin = (vals[:, :K] - vals[:, 1:]).amin(-1)
+        drift = (lk - lx).abs().amax(-1)
+        T = flip.numel() // B
+        for b in range(B):
+            own = slice(b * T, (b + 1) * T)
+            if b in first or not (flip[own] | moved[own]).any():
+                continue
+            grp = own if T > 1 else slice(None)
+            m = margin[grp][flip[grp]]
+            first[b] = (layer, m.max().item() if m.numel() else math.inf,
+                        drift[grp].max().item())
+    return per_layer, first
+
+
+MOE_RANGES = ("moe_block", "moe_route")
+
+
+@contextlib.contextmanager
+def _moe_ranges():
+    """While open, each MoE block and its routing run inside a
+    ``record_function`` range (``MOE_RANGES``) that ``_moe_split`` reads
+    from a trace."""
+    block, route = moe.moe_block_apply, moe._route
+
+    def ranged(fn, name):
+        def call(*args):
+            with torch.profiler.record_function(name):
+                return fn(*args)
+        return call
+
+    moe.moe_block_apply = ranged(block, "moe_block")
+    moe._route = ranged(route, "moe_route")
+    try:
+        yield
+    finally:
+        moe.moe_block_apply, moe._route = block, route
+
+
+def _kernel_us(ev) -> float:
+    """Device us of the kernels launched by the op ``ev`` and the ops under
+    it (the ranges' own GPU annotations left out)."""
+    return (sum(k.duration for k in ev.kernels if k.name not in MOE_RANGES)
+            + sum(_kernel_us(ch) for ch in ev.cpu_children))
+
+
+def _moe_split(prof) -> dict:
+    """Device ms, from a trace taken under ``_moe_ranges``, of the MoE
+    blocks' kernels, of their routing's, and of the einsums' of their
+    dispatch, experts and combine (the einsums outside the routing)."""
+    out = {"blocks": 0.0, "routing": 0.0, "einsums": 0.0}
+
+    def walk(ev, in_route):
+        for ch in ev.cpu_children:
+            if ch.name == "moe_route":
+                out["routing"] += _kernel_us(ch)
+                walk(ch, True)
+            elif ch.name == "aten::einsum" and not in_route:
+                out["einsums"] += _kernel_us(ch)
+            else:
+                walk(ch, in_route)
+
+    for ev in prof.events():
+        if ev.name == "moe_block" and ev.device_type == DeviceType.CPU:
+            out["blocks"] += _kernel_us(ev)
+            walk(ev, False)
+    return {k: v / 1e3 for k, v in out.items()}
 
 
 def _clone(tree):
@@ -990,7 +1154,7 @@ def _clone(tree):
 # per prefill
 PATH_COUNTS = {ARCH: (32, 32, 0), SSM_ARCH: (0, 0, 48),
                HYBRID_ARCH: (6, 6, 32), VLM_ARCH: (24, 24, 0),
-               ENCDEC_ARCH: (72, 48, 0)}
+               ENCDEC_ARCH: (72, 48, 0), MOE_ARCH: (48, 48, 0)}
 
 
 def _path_counts(cfg) -> tuple:
@@ -1042,10 +1206,53 @@ def _lookup_cost(cfg, n_dec: int, step) -> None:
           f"host, {n_dec} per step = {n_dec * per_us / 1e3:.3f} ms")
 
 
-def _model_run(arch: str, dtype: str, steps: int) -> None:
+def _free_gib() -> float:
+    return torch.cuda.mem_get_info()[0] / 2 ** 30
+
+
+def _moe_bounds(cfg, param_bytes: float) -> tuple:
+    """An MoE model's least device times at BATCH x PROMPT: (the prefill's
+    FLOP, its bound in ms, a decode step's bytes, its floor in ms).  The
+    prefill counts each expert over the capacity slots of every routing
+    group, the dispatch and combine products, the router, the attention
+    projections, attention over its unmasked pairs and the head, at the
+    bf16 peak; it also reads every weight once.  A step reads every weight
+    but the embedding table (B rows of it) and the KV cache at its last
+    position, over the memory rate."""
+    d, E, K = cfg.d_model, cfg.num_experts, cfg.num_experts_per_tok
+    f = cfg.moe_d_ff or cfg.d_ff
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    tokens = BATCH * PROMPT
+    g, n, _ = moe.route_groups(torch.empty((BATCH, PROMPT, 1),
+                                           device="meta")).shape
+    C = moe.capacity(n, E, K)
+    per_layer = (g * E * C * 3 * 2 * d * f
+                 + 2 * 2 * g * n * E * C * d
+                 + 2 * tokens * d * E
+                 + 2 * tokens * d * (2 * H + 2 * KV) * hd
+                 + 4 * BATCH * H * PROMPT * (PROMPT + 1) // 2 * hd)
+    flops = cfg.num_layers * per_layer + 2 * BATCH * d * cfg.vocab_size
+    prefill, _ = _bound(param_bytes, (flops, BF16_FLOPS))
+    esize = torch_dtype(cfg).itemsize
+    kv = cfg.num_layers * 2 * BATCH * KV * (PROMPT + STEPS) * hd * esize
+    step_bytes = param_bytes - cfg.vocab_size * d * esize + kv
+    return flops, prefill, step_bytes, step_bytes / HBM_BPS * 1e3
+
+
+def _routing_summary(per_layer: list, K: int) -> str:
+    flips = {i: f for i, (f, _) in enumerate(per_layer) if f}
+    return (f"{sum(f for f, _ in per_layer)} top-{K} flips (set or slot "
+            f"order) and "
+            f"{sum(m for _, m in per_layer)} tokens with other kept slots "
+            f"over {len(per_layer)} MoE layers (flips by layer: "
+            f"{flips or 'none'})")
+
+
+def _model_run(arch: str, dtype: str, steps: int, layers_cut=None) -> None:
     """Full-width model: the kernel path against the plain path on the same
     inputs.  Each decode step starts both paths from the kernel path's
-    cache, so a step compares the step alone.
+    cache, so a step compares the step alone.  ``layers_cut``: the model
+    cut to that many layers, its widths kept.
 
     float32: atol = rtol = 1e-4; the two paths differ only in summation
     order, and a bf16 computation anywhere would miss this by far.
@@ -1054,34 +1261,76 @@ def _model_run(arch: str, dtype: str, steps: int) -> None:
     prefill, 5e-2 decode, absolute) and twice the gap, measured in this
     run, between the plain path and itself with 64-key instead of 512-key
     attention blocks and 128-token instead of 256-token SSD chunks (same
-    math, other rounding)."""
+    math, other rounding).
+
+    An MoE model also has its init's peak memory held under its
+    parameters' bytes + 2 GB, the routing decisions that differ between
+    the two paths counted at each MoE layer (``_routing_diff``), a logits
+    row past its bound passed only as a routing near-tie
+    (``_check_logits``), and in bf16 the MoE blocks' share of the traced
+    prefill and decode step, each beside its bound (``_moe_bounds``)."""
     cfg = get_config(arch).replace(dtype=dtype)
+    full = cfg.num_layers
+    if layers_cut:
+        cfg = cfg.replace(num_layers=layers_cut)
     n_pre, n_dec, n_mamba = _path_counts(cfg)
-    assert (n_pre, n_dec, n_mamba) == PATH_COUNTS[arch], (arch, n_pre, n_dec,
-                                                          n_mamba)
+    assert (n_pre, n_dec, n_mamba) == tuple(
+        n * cfg.num_layers // full for n in PATH_COUNTS[arch]), \
+        (arch, n_pre, n_dec, n_mamba)
     cfg_k, cfg_x = cfg.replace(kernel_impl="pallas"), cfg.replace(kernel_impl="xla")
+    is_moe, K = bool(cfg.num_experts), cfg.num_experts_per_tok
+    if is_moe:
+        print(f"[model] {cfg.name} {dtype}, {cfg.num_layers} of its {full} "
+              f"layers: {_free_gib():.2f} GiB free on the card before the "
+              f"init")
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
     params = api.init_params(cfg_k, seed=0)
     nparam = sum(x.numel() for x in tensor_leaves(params))
+    pbytes = sum(x.numel() * x.element_size() for x in tensor_leaves(params))
+    if is_moe:
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        print(f"[model] {cfg.name} {dtype} api.init_params: peak "
+              f"{peak / 1e9:.3f} GB allocated (torch.cuda.max_memory_"
+              f"allocated) for {pbytes / 1e9:.3f} GB of parameters, "
+              f"{(peak - pbytes) / 1e9:+.3f} GB (bound +2 GB)")
+        assert peak < pbytes + 2e9, ("init peak memory", peak, pbytes)
+
+    def run(fn):
+        """``fn``'s result, and for an MoE model its routing calls."""
+        if not is_moe:
+            return fn(), None
+        with _routing_recorded() as calls:
+            out = fn()
+        return out, calls
+
+    def diff(plain, kern):
+        return _routing_diff(plain, kern, BATCH, K) if is_moe else ([], None)
+
     batch = api.make_batch(cfg, InputShape("smoke", PROMPT, BATCH, "prefill"),
                            seed=1)
     cap = PROMPT + steps
-    lx, _ = api.prefill(params, batch, cfg_x, capacity=cap)
+    (lx, _), rx = run(lambda: api.prefill(params, batch, cfg_x, capacity=cap))
+    floor_flips = None
     if dtype == "float32":
         floor, rtol = None, 1e-4
         atol = {"prefill": 1e-4, "decode": 1e-4}
     else:
         saved, layers.DEFAULT_BLOCK_K = layers.DEFAULT_BLOCK_K, 64
         try:
-            l64, _ = api.prefill(params, batch,
-                                 cfg_x.replace(ssm_chunk_size=128),
-                                 capacity=cap)
+            (l64, _), r64 = run(lambda: api.prefill(
+                params, batch, cfg_x.replace(ssm_chunk_size=128),
+                capacity=cap))
         finally:
             layers.DEFAULT_BLOCK_K = saved
         floor, rtol = _maxerr(l64, lx), 0.0
+        floor_flips = diff(rx, r64)[0]
         atol = {"prefill": max(3e-2, 2 * floor),
                 "decode": max(5e-2, 2 * floor)}
     _reset_launches()
-    lk, ck = api.prefill(params, batch, cfg_k, capacity=cap)
+    (lk, ck), rk = run(lambda: api.prefill(params, batch, cfg_k,
+                                           capacity=cap))
     torch.cuda.synchronize()
     assert (k1.LAUNCHES, k2.LAUNCHES, k4.LAUNCHES) == (n_pre, 0, n_mamba), \
         ("prefill launches", k1.LAUNCHES, k2.LAUNCHES, k4.LAUNCHES)
@@ -1089,27 +1338,47 @@ def _model_run(arch: str, dtype: str, steps: int) -> None:
     assert k1.LAUNCHES_BY_BODY.get(body, 0) == k1.LAUNCHES, \
         ("flash launches not all through the", body, "body",
          k1.LAUNCHES_BY_BODY)
-    flips = _check_logits(lk, lx, atol["prefill"], rtol, "prefill logits")
+    pre_flips, first = diff(rx, rk)
+    flips, ties = _check_logits(lk, lx, atol["prefill"], rtol,
+                                "prefill logits", first)
     p_err, p_jax = _maxerr(lk, lx), _bound_used(lk, lx, 3e-2, 3e-2)
     d_err = d_jax = 0.0
+    dec_flips = [(0, 0)] * len(pre_flips)
     tok = lk.argmax(-1).to(torch.int32)
     assert api.prefill_len(batch) == PROMPT, api.prefill_len(batch)
     pos = torch.tensor(PROMPT, dtype=torch.int32, device=DEV)
     for step in range(steps):
-        dx, _ = api.decode_step(params, _clone(ck), tok, pos, cfg_x)
+        (dx, _), rdx = run(lambda: api.decode_step(params, _clone(ck), tok,
+                                                   pos, cfg_x))
         before = k2.LAUNCHES
-        dk, ck = api.decode_step(params, ck, tok, pos, cfg_k)
+        (dk, ck), rdk = run(lambda: api.decode_step(params, ck, tok, pos,
+                                                    cfg_k))
         torch.cuda.synchronize()
         assert k2.LAUNCHES - before == n_dec, ("decode launches", step)
         assert (k1.LAUNCHES, k4.LAUNCHES) == (n_pre, n_mamba), \
             "decode reached a prefill kernel"
-        flips += _check_logits(dk, dx, atol["decode"], rtol,
-                               f"decode step {step}")
+        step_flips, first = diff(rdx, rdk)
+        dec_flips = [(a + c, b + e) for (a, b), (c, e)
+                     in zip(dec_flips, step_flips)]
+        n_arg, n_tie = _check_logits(dk, dx, atol["decode"], rtol,
+                                     f"decode step {step}", first)
+        flips, ties = flips + n_arg, ties + n_tie
         d_err = max(d_err, _maxerr(dk, dx))
         d_jax = max(d_jax, _bound_used(dk, dx, 5e-2, 5e-2))
         tok = dk.argmax(-1).to(torch.int32)
         pos = pos + 1
     counts = (k1.LAUNCHES, k2.LAUNCHES, k4.LAUNCHES)
+    if is_moe:
+        floor_part = ("" if floor_flips is None else
+                      f"; plain path against itself with 64-key attention "
+                      f"blocks (its rounding floor): "
+                      f"{_routing_summary(floor_flips, K)}")
+        print(f"[model] {cfg.name} {dtype} routing, kernel path against "
+              f"plain path: prefill ({BATCH * PROMPT} tokens) "
+              f"{_routing_summary(pre_flips, K)}; the {steps} decode steps "
+              f"({BATCH} tokens each) {_routing_summary(dec_flips, K)}"
+              f"{floor_part}; logits rows passed as routing near-ties: "
+              f"{ties} of {BATCH * (steps + 1)}")
     if dtype == "bfloat16":    # the served dtype: time the kernel path
         def run_prefill():
             api.prefill(params, batch, cfg_k, capacity=cap)
@@ -1128,8 +1397,8 @@ def _model_run(arch: str, dtype: str, steps: int) -> None:
                  ("of which its chunk states", "ssd_chunk_state_kernel",
                   n_mamba),
                  ("and its output", "ssd_chunk_scan_kernel", n_mamba))
-        kern, busy, _ = _profile_in(run_prefill,
-                                    tuple(k for _, k, _ in names))
+        kern, busy, _, split = _profile_in(
+            run_prefill, tuple(k for _, k, _ in names), moe_split=is_moe)
         parts = []
         for (label, _, want), (ms, n) in zip(names, kern):
             assert n == want, (label, n, want)
@@ -1141,12 +1410,19 @@ def _model_run(arch: str, dtype: str, steps: int) -> None:
               f"device activity {busy:.2f} ms, against the {pre_ms:.2f} ms "
               f"of an unprofiled prefill on the host clock (device idle "
               f"share {1 - busy / pre_ms:.1%})")
+        if is_moe:
+            flops, pre_bound, step_bytes, step_floor = _moe_bounds(cfg,
+                                                                   pbytes)
+            print(f"[model] {cfg.name} bf16 prefill, "
+                  f"{_moe_share(split, busy)}; bound {pre_bound:.2f} ms "
+                  f"({flops / 1e12:.2f} TFLOP at {BF16_FLOPS / 1e12:.0f} "
+                  f"TFLOP/s), device activity {busy / pre_bound:.2f}x it")
 
         def run_step():
             api.decode_step(params, ck, tok, pos - 1, cfg_k)
 
-        (dec, ssd), busy, _ = _profile_in(run_step,
-                                          ("::decode_kernel<", "ssd_"))
+        (dec, ssd), busy, _, split = _profile_in(
+            run_step, ("::decode_kernel<", "ssd_"), moe_split=is_moe)
         assert dec[1] == n_dec and ssd[1] == 0, ("decode step kernels", dec,
                                                  ssd)
         k2_part = (f"decode attention {dec[0]:.3f} ms over {dec[1]} kernels "
@@ -1156,11 +1432,21 @@ def _model_run(arch: str, dtype: str, steps: int) -> None:
               f"{k2_part}all device activity {busy:.2f} ms, against the "
               f"{step_ms:.2f} ms of an unprofiled step on the host clock "
               f"(device idle share {1 - busy / step_ms:.1%})")
+        if is_moe:
+            print(f"[model] {cfg.name} bf16 decode step, "
+                  f"{_moe_share(split, busy)}; weight-read floor "
+                  f"{step_floor:.2f} ms ({step_bytes / 1e9:.2f} GB: every "
+                  f"weight but the embedding table, and the KV cache, at "
+                  f"{HBM_BPS / 1e12:.2f} TB/s), device activity "
+                  f"{busy / step_floor:.2f}x it")
     bound = ("atol = rtol = 1e-4" if floor is None else
              f"atol {atol['prefill']:.3e} / {atol['decode']:.3e}, plain-path "
              f"rounding floor {floor:.3e}")
+    cut = (f" (cut to {cfg.num_layers} of its {full} layers)"
+           if layers_cut else "")
     print(f"[model] {cfg.name} full width ({nparam / 1e6:.1f}M params, "
-          f"{cfg.num_layers} layers, {dtype}): prefill {BATCH}x{PROMPT} + "
+          f"{cfg.num_layers} layers{cut}, {dtype}): prefill "
+          f"{BATCH}x{PROMPT} + "
           f"{steps} decode steps, kernel path vs plain path: max |dlogit| "
           f"prefill {p_err:.3e}, decode {d_err:.3e} ({bound}); share of the "
           f"JAX 2-layer bounds used: prefill {p_jax:.2f} (3e-2), decode "
@@ -1174,10 +1460,23 @@ def _model_run(arch: str, dtype: str, steps: int) -> None:
     torch.cuda.empty_cache()
 
 
+def _moe_share(split: dict, busy: float) -> str:
+    return (f"MoE blocks {split['blocks']:.2f} ms of its {busy:.2f} ms of "
+            f"device activity ({split['blocks'] / busy:.1%}; of them routing "
+            f"{split['routing']:.2f} ms, the dispatch, expert and combine "
+            f"einsums {split['einsums']:.2f} ms)")
+
+
 def phase_model() -> None:
-    for arch in (ARCH, SSM_ARCH, HYBRID_ARCH, VLM_ARCH, ENCDEC_ARCH):
-        _model_run(arch, "float32", 4)
+    """The float32 check and the bf16 run of each model, Qwen3-MoE last
+    with its float32 check cut to MOE_F32_LAYERS layers."""
+    for arch in (ARCH, SSM_ARCH, HYBRID_ARCH, VLM_ARCH, ENCDEC_ARCH,
+                 MOE_ARCH):
+        _model_run(arch, "float32", 4,
+                   MOE_F32_LAYERS if arch == MOE_ARCH else None)
+        torch.cuda.empty_cache()
         _model_run(arch, "bfloat16", STEPS)
+        torch.cuda.empty_cache()
 
 
 def _host_ms(fn) -> float:
@@ -1193,6 +1492,7 @@ def _graph_run(arch: str) -> None:
     """``serve``'s executor at bucket BATCH: the request captured in a CUDA
     graph, replayed, and held against the eager path; both timed in turns
     (replay, eager, eager, replay); one replay traced."""
+    free = _free_gib()
     ex, cfg = real_executor_for(arch, prompt_len=PROMPT, new_tokens=STEPS)
     n_pre, n_dec, n_mamba = _path_counts(cfg)
     t0 = time.perf_counter()
@@ -1226,20 +1526,35 @@ def _graph_run(arch: str) -> None:
     names = (("flash", "flash_fwd_wgmma_kernel", n_pre),
              ("decode", "::decode_kernel<", n_dec * STEPS),
              ("ssd_scan", "ssd_", k4.KERNELS_PER_CALL * n_mamba))
-    kern, busy, span = _profile_in(replay, tuple(k for _, k, _ in names))
-    counted = {label: n for (label, _, _), (_, n) in zip(names, kern)}
-    assert counted == {label: n for label, _, n in names}, \
-        ("CUDA kernels in one replay", counted)
+    # A trace this long (Qwen3-MoE's replay: 178,330 device events) loses
+    # a few records at random, which only ever lowers a count.  Every
+    # replay launches the same kernels, so up to three replays are traced
+    # until one counts exactly the launches the capture recorded; a kernel
+    # the graph missed or added shows in every trace.
+    want = {label: n for label, _, n in names}
+    totals = []
+    while True:
+        kern, busy, span, _ = _profile_in(
+            replay, tuple(k for _, k, _ in names) + ("",))
+        totals.append(kern.pop()[1])       # "" matches every event
+        counted = {label: n for (label, _, _), (_, n) in zip(names, kern)}
+        if counted == want:
+            break
+        assert len(totals) < 3, ("CUDA kernels in one replay", counted,
+                                 "device events in each trace", totals)
     rep = sorted(times["replay"])[0]
     ours = ", ".join(f"{label} {ms:.2f} ms" for (label, _, n), (ms, _)
                      in zip(names, kern) if n)
-    print(f"[graphs] {cfg.name} bf16, {BATCH}x{PROMPT} + {STEPS} steps: "
+    print(f"[graphs] {cfg.name} bf16, {BATCH}x{PROMPT} + {STEPS} steps "
+          f"({free:.2f} GiB free on the card before the init; "
+          f"{_free_gib():.2f} after the capture): "
           f"warm-up and capture {warm_s:.2f}s (capture "
           f"{ex.capture_time_s:.2f}s); replayed tokens equal the eager "
           f"path's ({replayed.numel()} tokens); host clock per request, in "
           f"turns: replay {', '.join(f'{t:.2f}' for t in times['replay'])} "
           f"ms, eager {', '.join(f'{t:.2f}' for t in times['eager'])} ms")
-    print(f"[graphs] {cfg.name} one replay under torch.profiler: CUDA "
+    print(f"[graphs] {cfg.name} one replay under torch.profiler (device "
+          f"events in each trace taken: {totals}): CUDA "
           f"kernels {counted} (recorded in the capture: {entry.launches}), "
           f"{ours}; all device activity {busy:.2f} ms over a {span:.2f} ms "
           f"span (device idle share {1 - busy / span:.1%}); an unprofiled "
@@ -1249,8 +1564,10 @@ def _graph_run(arch: str) -> None:
 
 
 def phase_graphs() -> None:
-    for arch in (ARCH, SSM_ARCH, HYBRID_ARCH, VLM_ARCH, ENCDEC_ARCH):
+    for arch in (ARCH, SSM_ARCH, HYBRID_ARCH, VLM_ARCH, ENCDEC_ARCH,
+                 MOE_ARCH):
         _graph_run(arch)
+        torch.cuda.empty_cache()
 
 
 def _serve(arch: str, max_bs: int, max_mtl: int, steps: int) -> dict:
@@ -1260,6 +1577,7 @@ def _serve(arch: str, max_bs: int, max_mtl: int, steps: int) -> dict:
     warm-up, the SLO's calibration and the profiler's probes: the
     wrappers' own counts (launches outside a graph: none, with no miss)
     plus the executor's count of the graphs' replays."""
+    free = _free_gib()
     t0 = time.perf_counter()
     ex, cfg = real_executor_for(arch, prompt_len=PROMPT, new_tokens=STEPS)
     n_pre, n_dec, n_mamba = _path_counts(cfg)
@@ -1273,6 +1591,7 @@ def _serve(arch: str, max_bs: int, max_mtl: int, steps: int) -> dict:
         ex.warmup(n, 1)
     warm_s = time.perf_counter() - t0
     reserved = torch.cuda.memory_reserved() / 2 ** 30
+    free_warm = _free_gib()
     warm_misses = ex.cache_stats.misses
     assert ex.captures == warm_misses, (ex.captures, warm_misses)
     ex.cache_stats.reset_counters()
@@ -1302,7 +1621,10 @@ def _serve(arch: str, max_bs: int, max_mtl: int, steps: int) -> dict:
           f"{max(max_bs, max_mtl)} (max_bs {max_bs}, max_mtl {max_mtl}): "
           f"warmed {warm_misses} buckets in {warm_s:.1f}s, of which "
           f"{ex.capture_time_s:.1f}s capturing {ex.captures} CUDA graphs "
-          f"(memory reserved after the warm-up {reserved:.2f} GiB); base "
+          f"(memory reserved after the warm-up {reserved:.2f} GiB, of "
+          f"which parameters {ex.param_bytes / 2 ** 30:.2f}; free on the "
+          f"card {free:.2f} GiB before the init, {free_warm:.2f} after the "
+          f"warm-up); base "
           f"{base * 1e3:.1f} ms -> SLO "
           f"{slo * 1e3:.1f} ms; replays per bucket over the whole run "
           f"{replays}")
@@ -1333,15 +1655,17 @@ def _serve(arch: str, max_bs: int, max_mtl: int, steps: int) -> dict:
 
 def phase_serving() -> tuple:
     """The main paths, each with its own counts: SmolLM-360M (K1, K2) and
-    Mamba2-1.3B (K4) at buckets up to 64 and 40 steps, then InternVL2-2B
-    and Whisper-medium (K1, K2) at buckets up to 16 and 10 steps.
+    Mamba2-1.3B (K4) at buckets up to 64 and 40 steps, then InternVL2-2B,
+    Whisper-medium and Qwen3-MoE-30B-A3B (K1, K2) at buckets up to 16 and
+    10 steps.
     Returns the kernels' launches on the first paths that reach them
     (SmolLM, Mamba2), and every path's launches by model."""
     by_path = {get_config(arch).name: _serve(arch, *knobs)
                for arch, knobs in ((ARCH, (64, 4, 40)),
                                    (SSM_ARCH, (64, 4, 40)),
                                    (VLM_ARCH, (16, 4, 10)),
-                                   (ENCDEC_ARCH, (16, 4, 10)))}
+                                   (ENCDEC_ARCH, (16, 4, 10)),
+                                   (MOE_ARCH, (16, 4, 10)))}
     smollm, mamba = (by_path[get_config(a).name] for a in (ARCH, SSM_ARCH))
     return ({"flash": smollm["flash"], "decode": smollm["decode"],
              "ssd_scan": mamba["ssd_scan"]}, by_path)

@@ -1,7 +1,7 @@
 """Model API — counterpart of ``repro.models.api``: dispatches on
-``cfg.is_encoder_decoder`` between the decoder-only models (dense, SSM,
-hybrid and the vision stub; MoE layers raise in ``transformer``) and the
-encoder-decoder (``encdec``).
+``cfg.is_encoder_decoder`` between the decoder-only models (dense, MoE,
+SSM, hybrid and the vision stub: ``transformer``) and the encoder-decoder
+(``encdec``).
 
   init_params(cfg, seed=0, device=None)             -> params dict
   params_from_jax(tree, device=None)                -> params dict

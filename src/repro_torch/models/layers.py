@@ -31,7 +31,9 @@ DEFAULT_BLOCK_K = 512
 # on ``prefix``: ``(count,)`` for a stacked group, ``()`` for one block
 # ---------------------------------------------------------------------------
 def normal(gen, shape, dt, device):
-    return (torch.randn(shape, generator=gen, device=device) * 0.02).to(dt)
+    """A float32 draw at 0.02, scaled in place and cast to ``dt``: one
+    float32 temporary of the leaf beside its result."""
+    return torch.randn(shape, generator=gen, device=device).mul_(0.02).to(dt)
 
 
 def init_attn_block(gen, cfg, prefix, dt, device, *,

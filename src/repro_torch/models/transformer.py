@@ -1,18 +1,21 @@
-"""Decoder-only transformer assembly for the dense, SSM, hybrid and VLM
-models.
+"""Decoder-only transformer assembly for the dense, MoE, SSM, hybrid and
+VLM models.
 
 Counterpart of ``repro.models.transformer`` for the ``attn``, ``swa``,
-``local_global``, ``mamba`` and ``hybrid_super`` groups, with the vision
-stub's patch embeddings prepended (``embed_tokens``).  Each group's
-parameters keep the reference's layout, stacked on a leading layer axis
-(Zamba2's Mamba stack on two: super-block, then block; its shared block
-unstacked); a Python loop over that axis takes the place of ``lax.scan``.
+``local_global``, ``mamba`` and ``hybrid_super`` groups (a dense layer's
+FFN is an MLP, or with ``cfg.num_experts`` a mixture of experts,
+``models/moe.py``), with the vision stub's patch embeddings prepended
+(``embed_tokens``).  Each group's parameters keep the reference's layout,
+stacked on a leading layer axis (Zamba2's Mamba stack on two:
+super-block, then block; its shared block unstacked); a Python loop over
+that axis takes the place of ``lax.scan``.
 Two modes:
 
   prefill — full-sequence forward, returns last-position logits + cache
   decode  — one token against the cache (the serving hot path)
 
-Both write the cache in place.  MoE layers are not ported yet.
+Both write the cache in place.  The MoE layers' load-balance loss is
+discarded, as the reference's prefill and decode discard it.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from repro_torch.configs.base import ATTN, MAMBA, SWA, torch_dtype
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
 
 KINDS = (ATTN, SWA, "local_global", MAMBA, "hybrid_super")
 
@@ -36,10 +40,12 @@ def _check_kind(kind: str) -> None:
 # Parameter init (random, from an explicit torch.Generator)
 # ---------------------------------------------------------------------------
 def _init_dense_stack(gen, cfg, prefix, dt, device) -> dict:
+    p = {"attn": L.init_attn_block(gen, cfg, prefix, dt, device)}
     if cfg.num_experts:
-        raise NotImplementedError("MoE layers are not ported to repro_torch yet")
-    return {"attn": L.init_attn_block(gen, cfg, prefix, dt, device),
-            "mlp": L.init_mlp(gen, cfg, prefix, dt, device)}
+        p["moe"] = MOE.init_moe(gen, cfg, prefix, dt, device)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg, prefix, dt, device)
+    return p
 
 
 def init_params(gen: torch.Generator, cfg, device) -> dict:
@@ -87,7 +93,10 @@ def dense_layer_apply(lp, x, cfg, *, window, mode, kv=None, cache_pos=None,
     x, new_kv = L.attn_block_apply(lp["attn"], x, cfg, window=window,
                                    mode=mode, cache=kv, cache_pos=cache_pos,
                                    positions=positions, ring=ring)
-    x = L.mlp_apply(lp["mlp"], x, cfg)
+    if "moe" in lp:
+        x, _ = MOE.moe_block_apply(lp["moe"], x, cfg)
+    else:
+        x = L.mlp_apply(lp["mlp"], x, cfg)
     return x, new_kv
 
 

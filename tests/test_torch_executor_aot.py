@@ -28,7 +28,7 @@ from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.executor import RealExecutor
 
 TINY_ARCHS = ("smollm_360m", "mamba2_1p3b", "zamba2_1p2b", "internvl2_2b",
-              "whisper_medium")
+              "whisper_medium", "qwen3_moe_30b_a3b", "mixtral_8x22b")
 
 
 class FakeGraph:

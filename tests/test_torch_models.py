@@ -1,5 +1,5 @@
-"""Port models against ``repro.models.api`` on TINY configs (dense, Mamba2
-and the Zamba2 hybrid), on the
+"""Port models against ``repro.models.api`` on TINY configs (dense, MoE,
+Mamba2 and the Zamba2 hybrid), on the
 plain path (``kernel_impl="xla"``): prefill logits, the whole cache, one
 decode step's logits and the updated cache.  Weights are the reference's,
 converted leaf by leaf (``params_from_jax``); tokens come from numpy.
@@ -23,7 +23,7 @@ from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 
 ARCHS = ["smollm_360m", "gemma2_2b", "qwen2_72b", "granite_20b",
-         "mamba2_1p3b", "zamba2_1p2b"]
+         "mamba2_1p3b", "zamba2_1p2b", "qwen3_moe_30b_a3b", "mixtral_8x22b"]
 T, CAP, BATCH = 40, 48, 2
 
 

@@ -1,8 +1,8 @@
 """Port models on the kernel path (``kernel_impl="pallas"``) against the
 reference running its Pallas kernels in interpret mode, float32 at 1e-4
-(and for Mamba2 and Zamba2 also bfloat16 at the JAX bounds); and the
-``windowed=True`` ring-buffer decode on gemma2 on both paths.  On the CPU
-the port's kernel wrappers take their plain versions.
+(and for Mamba2, Zamba2 and the two MoE models also bfloat16 at the JAX
+bounds); and the ``windowed=True`` ring-buffer decode on gemma2 on both
+paths.  On the CPU the port's kernel wrappers take their plain versions.
 
 The port's prefill sends every Mamba block of a freshly allocated cache
 through the SSD-scan kernel; the reference's prefill hands those blocks
@@ -26,12 +26,14 @@ from test_torch_models import _leaves32, _torch_leaves, run_both  # noqa: E402
 
 
 @pytest.mark.parametrize("arch", ["smollm_360m", "gemma2_2b", "mamba2_1p3b",
-                                  "zamba2_1p2b"])
+                                  "zamba2_1p2b", "qwen3_moe_30b_a3b",
+                                  "mixtral_8x22b"])
 def test_kernel_path_matches_reference_pallas_f32(arch):
     run_both(arch, "float32", "pallas", 1e-4, 1e-4)
 
 
-@pytest.mark.parametrize("arch", ["mamba2_1p3b", "zamba2_1p2b"])
+@pytest.mark.parametrize("arch", ["mamba2_1p3b", "zamba2_1p2b",
+                                  "qwen3_moe_30b_a3b", "mixtral_8x22b"])
 def test_kernel_path_matches_reference_pallas_bf16(arch):
     run_both(arch, "bfloat16", "pallas", 3e-2, 5e-2)
 

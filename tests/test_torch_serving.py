@@ -121,6 +121,18 @@ def test_serve_cli_serves_the_frontend_models(arch, monkeypatch, capsys,
     """``serve --arch ... --tiny --real --device cpu`` serves the vision stub
     and the encoder-decoder: the controller settles on knobs inside its
     bounds, throughput is positive and no stale bucket is served."""
+    _serve_cli(arch, monkeypatch, capsys, tmp_path)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mixtral-8x22b"])
+def test_serve_cli_serves_the_moe_models(arch, monkeypatch, capsys,
+                                         tmp_path):
+    """The same for the two MoE models (capacity dispatch per routing
+    group, every expert run on every step)."""
+    _serve_cli(arch, monkeypatch, capsys, tmp_path)
+
+
+def _serve_cli(arch, monkeypatch, capsys, tmp_path):
     import re
     import sys
 
