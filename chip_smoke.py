@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Seven phases, any failure fatal, all in a temporary autotune store, so a
+Eight phases, any failure fatal, all in a temporary autotune store, so a
 stale ``.profile_store/`` in the working directory changes nothing:
   1. toolchain: torch / CUDA / nvcc versions, the card, TF32 off;
   2. build the four CUDA kernels from src/repro_torch/kernels/csrc with
@@ -27,12 +27,13 @@ stale ``.profile_store/`` in the working directory changes nothing:
      included) and on the device alone (the same 20 calls captured once in
      a CUDA graph and replayed between two events).  K1 and K2 also at the
      call shapes of InternVL2-2B (hd 128, G 2), Qwen3-MoE-30B-A3B (hd 128,
-     G 8) and Whisper-medium (hd 64, G 1: its bidirectional encoder over
+     G 8), Whisper-medium (hd 64, G 1: its bidirectional encoder over
      1500 frames, its decoder's self-attention, its cross-attention at
      prefill through K1 and at decode through K2 over a transposed view of
-     the encoder's cache), each held against its plain version in both
-     dtypes with the body asserted, and timed on the device alone beside
-     SDPA with its bound;
+     the encoder's cache) and Gemma-2-2B (hd 256, cap 50: K1's CUDA-core
+     body, K2 over a 1,024-position cache), each held against its plain
+     version in both dtypes with the body asserted, and timed on the
+     device alone beside SDPA with its bound;
   4. model: full-width SmolLM-360M, Mamba2-1.3B, Zamba2-1.2B, InternVL2-2B
      (a prompt of 256 patch embeddings and 256 text tokens),
      Whisper-medium (1500 encoder frames, a 512-token decoder prompt) and
@@ -76,7 +77,17 @@ stale ``.profile_store/`` in the working directory changes nothing:
      kernels' launches over the engine's run counted from the replays
      (each bucket's launches recorded in its capture, times its
      replays), every flash launch through the wgmma body;
-  7. autotune: ``serve --autotune``'s tuning of the serving shape classes
+  7. tokens: Gemma-2-2B at full width (``phase_tokens``): its kernel
+     path against its plain path (an 8 x 512 prefill and 4 steps, float32
+     and bf16), a 1 x 512 prefill replayed in a CUDA graph as the token
+     engine's measured prefill, ``serve.decode_executor_for``'s slot
+     buckets 1-16 (one decode step each, over a cache prefilled through
+     K1, captured in a CUDA graph; per bucket the step's host-clock ms,
+     one traced replay's busy ms, idle share, K2's and the head product's
+     ms), then ``token_engine.run_continuous`` over them on a 64-request
+     ragged trace: requests conserved, no bucket miss and no stale hit
+     after the warm-up, every decode launch a replay's;
+  8. autotune: ``serve --autotune``'s tuning of the serving shape classes
      (SmolLM-360M prefill, decode and paged decode; Mamba2-1.3B's SSD
      scan), every candidate timed through its kernel on the device alone
      (calls captured in a CUDA graph): the flash kernel at its four wgmma
@@ -87,17 +98,19 @@ stale ``.profile_store/`` in the working directory changes nothing:
      own tile; then a short SmolLM serving run on the tuned cache with
      zero misses and zero stale hits after warm-up.
 
-Every phase runs Qwen3-MoE last, its 61 GB of weights made after the
-model before it is freed, and prints the card's free memory before its
-init; running out of memory fails the script.  Prints the kernels' JSON
-line (each kernel's launches on the first served path that reaches it, and
-by path in ``launches_by_path``), the card's name and power limit, and last
-the device JSON line.  Exits non-zero without a CUDA device.
+Phases 4-6 run Qwen3-MoE last, its 61 GB of weights made after the
+model before it is freed, and print the card's free memory before its
+init (phase 7 prints it before Gemma-2-2B's); running out of memory fails
+the script.  Prints the kernels' JSON line (each kernel's launches on the
+first served path that reaches it, and by path in ``launches_by_path``,
+the token path's under ``tokens``), the card's name and power limit, and
+last the device JSON line.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import re
@@ -135,15 +148,17 @@ from repro_torch.kernels.flash_attention import \
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan as k4  # noqa: E402
-from repro_torch.launch.serve import (make_controller,  # noqa: E402
-                                      real_executor_for)
-from repro_torch.models import api, layers, moe  # noqa: E402
+from repro_torch.launch.serve import (decode_executor_for,  # noqa: E402
+                                      make_controller, real_executor_for)
+from repro_torch.models import api, layers, moe, transformer  # noqa: E402
 from repro_torch.models.mamba import ssd_chunked  # noqa: E402
 from repro_torch.perf import autotune  # noqa: E402
 from repro_torch.perf.roofline import (BF16_FLOPS, F32_FLOPS,  # noqa: E402
                                        HBM_BPS, TF32_FLOPS)
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
-from repro_torch.serving.executor import tensor_leaves  # noqa: E402
+from repro_torch.serving.executor import CudaGraphs, tensor_leaves  # noqa: E402
+from repro_torch.serving.token_engine import (  # noqa: E402
+    ragged_decode_trace, run_continuous)
 
 DEV = torch.device("cuda")
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -249,6 +264,11 @@ VLM_ARCH, ENCDEC_ARCH = "internvl2_2b", "whisper_medium"
 # about 19 GB of the card), and its float32 check cut to 8 of its 48
 # layers (all 48 are 122 GB in float32)
 MOE_ARCH, MOE_F32_LAYERS = "qwen3_moe_30b_a3b", 8
+# the token path: the model the reference's token engine serves by default,
+# its KV budget, the slot ladder (the token engine's buckets up to 16
+# slots) and the decode steps of its model check
+TOKEN_ARCH, KV_BUDGET, TOKEN_STEPS = "gemma2_2b", 1024, 4
+SLOT_LADDER = (1, 2, 4, 8, 12, 16)
 # a logits row past its bound passes as a routing near-tie only if, at the
 # first layer where its routing differs between the two paths, no router
 # logit of its routing group has drifted by more than this (the JAX
@@ -410,6 +430,12 @@ def phase_build() -> None:
         print(f"[build] {name}: {len(regs)} kernels, registers "
               f"{min(regs)}-{max(regs)} a thread; "
               + ("; ".join(spills) if spills else "no spills"))
+
+
+# each flash body's CUDA kernel, as its name shows in a trace
+FLASH_KERNEL = {"wgmma": "flash_fwd_wgmma_kernel",
+                "mma_sync": "flash_fwd_mma_kernel",
+                "cuda_cores": "::flash_fwd_kernel<"}
 
 
 def _flash_body(dtype, hd: int) -> str:
@@ -616,14 +642,19 @@ def phase_kernels() -> dict:
 def _family_shapes() -> tuple:
     """The call shapes InternVL2-2B's, Whisper-medium's and
     Qwen3-MoE-30B-A3B's paths give K1 and K2 at 8 x 512 positions and 32
-    steps, by name: K1 cases (B, Tq, Tk, H, KV, hd, causal, window, cap),
-    K2 cases ((B, S, H, KV, hd, pos, window, cap), whether the cache is
-    read through a transposed view)."""
-    vlm, enc, mo = (get_config(a) for a in (VLM_ARCH, ENCDEC_ARCH, MOE_ARCH))
+    steps, and Gemma-2-2B's token path (hd 256, cap 50) at 8 prompts of 512
+    tokens in a cache of ``KV_BUDGET`` positions, by name: K1 cases (B,
+    Tq, Tk, H, KV, hd, causal, window, cap), K2 cases ((B, S, H, KV, hd,
+    pos, window, cap), whether the cache is read through a transposed
+    view)."""
+    vlm, enc, mo, gem = (get_config(a) for a in (VLM_ARCH, ENCDEC_ARCH,
+                                                  MOE_ARCH, TOKEN_ARCH))
     S, Se = PROMPT + STEPS, enc.encoder_seq_len
     gv = (vlm.num_heads, vlm.num_kv_heads, vlm.head_dim)
     ge = (enc.num_heads, enc.num_kv_heads, enc.head_dim)
     gm = (mo.num_heads, mo.num_kv_heads, mo.head_dim)
+    gg = (gem.num_heads, gem.num_kv_heads, gem.head_dim)
+    cap = gem.attn_logit_softcap
     flash = {
         "internvl2 prefill": (BATCH, PROMPT, PROMPT, *gv, True, None, None),
         "whisper encoder": (BATCH, Se, Se, *ge, False, None, None),
@@ -631,25 +662,28 @@ def _family_shapes() -> tuple:
                                  None),
         "whisper cross prefill": (BATCH, PROMPT, Se, *ge, False, None, None),
         "qwen3-moe prefill": (BATCH, PROMPT, PROMPT, *gm, True, None, None),
+        "gemma2 prefill": (BATCH, PROMPT, PROMPT, *gg, True, None, cap),
     }
     decode = {
         "internvl2 decode": ((BATCH, S, *gv, S - 1, None, None), False),
         "whisper self decode": ((BATCH, S, *ge, S - 1, None, None), False),
         "whisper cross decode": ((BATCH, Se, *ge, Se - 1, None, None), True),
         "qwen3-moe decode": ((BATCH, S, *gm, S - 1, None, None), False),
+        "gemma2 decode": ((BATCH, KV_BUDGET, *gg, PROMPT, None, cap), False),
     }
     return flash, decode
 
 
 def phase_family_shapes() -> dict:
     """K1 and K2 at the call shapes of InternVL2-2B (hd 128, G 2),
-    Qwen3-MoE-30B-A3B (hd 128, G 8) and Whisper-medium (hd 64, G 1; 1500
+    Qwen3-MoE-30B-A3B (hd 128, G 8), Whisper-medium (hd 64, G 1; 1500
     encoder frames, not a multiple of either wgmma tile; non-causal
     encoder and cross-attention; the decode step's cross-attention through
-    a transposed view of the (B, S_enc, KV, hd) cache), each held against
-    its plain version in float32 and
-    bfloat16 with the body asserted, then timed in bf16 on the device
-    alone beside SDPA at the same shape, with its bound."""
+    a transposed view of the (B, S_enc, KV, hd) cache) and Gemma-2-2B (hd
+    256, G 2, cap 50: K1's CUDA-core body), each held against its plain
+    version in float32 and bfloat16 with the body asserted, then timed in
+    bf16 on the device alone, with its window and cap, beside SDPA at the
+    same shape (which has no cap), with its bound."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(19)
     flash, decode = _family_shapes()
@@ -664,20 +698,21 @@ def phase_family_shapes() -> dict:
     dt = torch.bfloat16
     timed = {}
     for name, case in flash.items():
-        B, Tq, Tk, H, KV, hd, causal, _, _ = case
+        B, Tq, Tk, H, KV, hd, causal, window, cap = case
         q, k, v = _qkv(gen, (B, Tq, H, hd), (B, Tk, KV, hd), dt)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        dev = _graph_ms(lambda: flash_ops.flash_attention(q, k, v,
-                                                          causal=causal))
+        dev = _graph_ms(lambda: flash_ops.flash_attention(
+            q, k, v, causal=causal, window=window, logit_cap=cap))
         lib = _graph_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True))
-        plain = _time_ms(lambda: attention_ref(q, k, v, causal=causal))
+        plain = _time_ms(lambda: attention_ref(
+            q, k, v, causal=causal, window=window, logit_cap=cap))
         pairs = B * H * (Tq * (Tq + 1) // 2 if causal else Tq * Tk)
         bound, by = _bound(2 * (2 * q.numel() + 2 * k.numel()),
                            (4 * pairs * hd, BF16_FLOPS))
         timed[name] = ("K1", case, dev, lib, plain, bound, by)
     for name, (case, view) in decode.items():
-        B, S, H, KV, hd, pos, _, _ = case
+        B, S, H, KV, hd, pos, window, cap = case
         qd = _rand(gen, (B, H, hd), dt, 2.0)
         if view:
             kc, vc = (_rand(gen, (B, S, KV, hd), dt, s).transpose(1, 2)
@@ -686,19 +721,20 @@ def phase_family_shapes() -> dict:
             kc, vc = (_rand(gen, (B, KV, S, hd), dt, s) for s in (2.0, 0.5))
         pd = torch.tensor([pos], dtype=torch.int32, device=DEV)
         dev = _graph_ms(lambda: decode_ops.decode_attention_kvmajor(
-            qd, kc, vc, pd))
+            qd, kc, vc, pd, window=window, logit_cap=cap))
         live = pos + 1
         lib = _graph_ms(lambda: F.scaled_dot_product_attention(
             qd[:, :, None], kc[:, :, :live], vc[:, :, :live],
             enable_gqa=True))
         plain = _time_ms(lambda: decode_attention_ref(
-            qd, kc.transpose(1, 2), vc.transpose(1, 2), pos))
+            qd, kc.transpose(1, 2), vc.transpose(1, 2), pos, window=window,
+            logit_cap=cap))
         bound, by = _bound(2 * (2 * qd.numel() + 2 * B * KV * live * hd),
                            (4 * B * H * live * hd, BF16_FLOPS))
         timed[name] = ("K2", case, dev, lib, plain, bound, by)
     for name, (kern, case, dev, lib, plain, bound, by) in timed.items():
         err = rows[name]
-        print(f"[kernels] {kern} at the {name} shape {case[:-2]}: max |kernel "
+        print(f"[kernels] {kern} at the {name} shape {case}: max |kernel "
               f"- plain| float32 {err[torch.float32]:.3e} (tol 2e-5), "
               f"bfloat16 {err[torch.bfloat16]:.3e} (tol 2e-2); bf16 device "
               f"{dev:.4f} ms, sdpa device {lib:.4f} ms, plain {plain:.4f} "
@@ -1154,7 +1190,8 @@ def _clone(tree):
 # per prefill
 PATH_COUNTS = {ARCH: (32, 32, 0), SSM_ARCH: (0, 0, 48),
                HYBRID_ARCH: (6, 6, 32), VLM_ARCH: (24, 24, 0),
-               ENCDEC_ARCH: (72, 48, 0), MOE_ARCH: (48, 48, 0)}
+               ENCDEC_ARCH: (72, 48, 0), MOE_ARCH: (48, 48, 0),
+               TOKEN_ARCH: (26, 26, 0)}
 
 
 def _path_counts(cfg) -> tuple:
@@ -1392,7 +1429,7 @@ def _model_run(arch: str, dtype: str, steps: int, layers_cut=None) -> None:
         print(f"[model] {cfg.name} bf16 kernel path, host clock around "
               f"synchronised runs: prefill {BATCH}x{PROMPT} {pre_ms:.2f} ms, "
               f"decode step {step_ms:.2f} ms")
-        names = (("flash", "flash_fwd_wgmma_kernel", n_pre),
+        names = (("flash", FLASH_KERNEL.get(body, "flash_fwd"), n_pre),
                  ("ssd_scan", "ssd_", k4.KERNELS_PER_CALL * n_mamba),
                  ("of which its chunk states", "ssd_chunk_state_kernel",
                   n_mamba),
@@ -1491,7 +1528,8 @@ def _host_ms(fn) -> float:
 def _graph_run(arch: str) -> None:
     """``serve``'s executor at bucket BATCH: the request captured in a CUDA
     graph, replayed, and held against the eager path; both timed in turns
-    (replay, eager, eager, replay); one replay traced."""
+    (replay, eager, replay: the eager request is the one the tokens are
+    held against); one replay traced."""
     free = _free_gib()
     ex, cfg = real_executor_for(arch, prompt_len=PROMPT, new_tokens=STEPS)
     n_pre, n_dec, n_mamba = _path_counts(cfg)
@@ -1505,24 +1543,21 @@ def _graph_run(arch: str) -> None:
         ("launches recorded in the capture", entry.launches, want)
     ex.run_step(BATCH, 1)
     replayed = entry.out.clone()
-    eager = api.generate(ex.params, entry.batch, cfg, STEPS)
-    torch.cuda.synchronize()
+
+    def replay():
+        entry.graph.replay()
+
+    eager = []
+    times = {"replay": [_host_ms(replay)],
+             "eager": [_host_ms(lambda: eager.append(api.generate(
+                 ex.params, entry.batch, cfg, STEPS)))]}
+    times["replay"].append(_host_ms(replay))
+    eager = eager[0]
     assert replayed.shape == (BATCH, STEPS + 1), replayed.shape
     assert int(replayed.min()) >= 0 and int(replayed.max()) < cfg.vocab_size
     assert torch.equal(replayed, eager), \
         ("replayed tokens differ from eager",
          int((replayed != eager).sum()))
-
-    def replay():
-        entry.graph.replay()
-
-    def run_eager():
-        api.generate(ex.params, entry.batch, cfg, STEPS)
-
-    times = {"replay": [], "eager": []}
-    for which in ("replay", "eager", "eager", "replay"):
-        times[which].append(_host_ms(replay if which == "replay"
-                                     else run_eager))
     names = (("flash", "flash_fwd_wgmma_kernel", n_pre),
              ("decode", "::decode_kernel<", n_dec * STEPS),
              ("ssd_scan", "ssd_", k4.KERNELS_PER_CALL * n_mamba))
@@ -1669,6 +1704,204 @@ def phase_serving() -> tuple:
     smollm, mamba = (by_path[get_config(a).name] for a in (ARCH, SSM_ARCH))
     return ({"flash": smollm["flash"], "decode": smollm["decode"],
              "ssd_scan": mamba["ssd_scan"]}, by_path)
+
+
+def _device_events(fn, complete=bool) -> list:
+    """(name, start us, end us) of each device activity in torch.profiler's
+    trace of one run of ``fn``, in start order.  A trace loses records now
+    and then (a whole short trace once, past 170,000 events a few), which
+    only ever lowers a count, so up to three runs are traced until
+    ``complete`` accepts one's events; else this fails."""
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = sorted(((e.name, e.time_range.start, e.time_range.end)
+                      for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e[1])
+        if dev and complete(dev):
+            return dev
+    raise AssertionError(("no complete trace in three", len(dev)))
+
+
+def _span_ms(events) -> tuple:
+    """(device busy ms, span ms from the first start to the last end)."""
+    busy = sum(end - start for _, start, end in events) / 1e3
+    return busy, (max(e for *_, e in events) - events[0][1]) / 1e3
+
+
+def _captured(run):
+    """(graph, output): ``run`` warmed up and captured once in a CUDA
+    graph of its own pool."""
+    graphs = CudaGraphs(DEV)
+    graphs.warm_up(run)
+    return graphs.capture(run)
+
+
+def _head_kernels(params, cfg, n: int, step: list) -> int:
+    """How many of the last device activities of the decode step whose
+    traced names are ``step`` are the head product's: those of
+    ``transformer.logits_last`` on ``n`` rows (the float32 widening of the
+    input rows and of the (d, vocab) head, the float32 product, the final
+    softcap), captured in a graph of their own and one replay traced.  A
+    trace whose names are not the step's last fails."""
+    x = torch.zeros((n, 1, cfg.d_model), dtype=torch_dtype(cfg), device=DEV)
+    graph, _ = _captured(lambda: transformer.logits_last(params, x[:, 0],
+                                                         cfg))
+    head = _device_events(graph.replay, lambda ev: [
+        name for name, *_ in ev] == step[-len(ev):])
+    del graph
+    torch.cuda.empty_cache()
+    return len(head)
+
+
+def _ladder_rung(ex, cfg, n: int, n_attn: int) -> dict:
+    """Bucket ``n``'s decode step: 20 replays on the host clock, one replay
+    traced (device busy and span, K2's kernels, the head product: the
+    step's last kernels, named as ``_head_kernels`` names them), and the
+    launches its capture recorded."""
+    entry = ex._exec[n]
+    assert entry.launches == {"decode": n_attn}, \
+        ("launches recorded in the capture", n, entry.launches)
+    host = sorted(_host_ms(entry.graph.replay) for _ in range(20))
+
+    def k2_of(events):
+        return [e for e in events if "::decode_kernel<" in e[0]]
+
+    events = _device_events(entry.graph.replay,
+                            lambda ev: len(k2_of(ev)) == n_attn)
+    busy, span = _span_ms(events)
+    k2_ev = k2_of(events)
+    n_head = _head_kernels(ex.params, cfg, n,
+                           [name for name, *_ in events])
+    tail = events[-n_head:]
+    return dict(host=host, busy=busy, span=span,
+                k2=sum(e - s for _, s, e in k2_ev) / 1e3,
+                head=sum(e - s for _, s, e in tail) / 1e3,
+                n_head=n_head, n_events=len(events),
+                launches=dict(entry.launches))
+
+
+def phase_tokens() -> dict:
+    """The token path at full width: Gemma-2-2B (26 layers, hd 256, caps
+    50 / 30; bf16, weights from seed 0), the model the reference's token
+    engine serves by default.
+      1. the model, kernel path against plain path: one 8 x 512 prefill
+         and ``TOKEN_STEPS`` decode steps in float32 (1e-4) and in bf16
+         (twice the plain path's floor), 26 K1 per prefill, 26 K2 a step;
+      2. a 1 x 512 prefill captured in a CUDA graph, the median of 5
+         replays on the host clock: the profile's measured ``prefill_ms``;
+      3. ``serve.decode_executor_for``: one decode step per slot bucket,
+         each bucket's cache filled by a prefill through K1 and its step
+         captured in a CUDA graph, warmed largest first; for each rung of
+         ``SLOT_LADDER`` the step's host-clock ms (20 replays), one traced
+         replay's device busy ms and idle share, K2's and the head
+         product's ms within it, the launches recorded at capture;
+      4. ``token_engine.run_continuous`` over it (the reference's ``serve
+         --token-engine`` defaults but a 64-request trace): requests
+         conserved, no bucket miss and no stale hit after the warm-up,
+         every decode launch a replay's.
+    Returns the path's launches: K1 over the warm-up (the prefills that
+    fill the buckets' caches), K2 over the engine's run (replays)."""
+    for dtype in ("float32", "bfloat16"):
+        _model_run(TOKEN_ARCH, dtype, TOKEN_STEPS)
+        torch.cuda.empty_cache()
+    free = _free_gib()
+    ex, cfg, prof = decode_executor_for(TOKEN_ARCH, prompt_len=PROMPT,
+                                        kv_budget=KV_BUDGET)
+    n_pre, n_attn, _ = _path_counts(cfg)
+
+    one = api.make_batch(cfg, InputShape("tokens", PROMPT, 1, "prefill"),
+                         seed=1)
+    graph, _ = _captured(lambda: api.prefill(ex.params, one, cfg,
+                                             capacity=KV_BUDGET))
+    pre = sorted(_host_ms(graph.replay) for _ in range(5))
+    del graph
+    torch.cuda.empty_cache()
+    ex.profile = dataclasses.replace(prof, prefill_ms=pre[2])
+    print(f"[tokens] {cfg.name} bf16, 1 x {PROMPT} prefill into a "
+          f"{KV_BUDGET}-position cache, one CUDA graph, 5 replays on the "
+          f"host clock: {', '.join(f'{t:.3f}' for t in pre)} ms; median "
+          f"{pre[2]:.3f} ms replaces the priced profile's prefill_ms "
+          f"{prof.prefill_ms:.3f} (a TPU figure)")
+
+    # the path: counts set to 0 before the buckets' warm-up, read after
+    # the engine's run
+    _reset_launches()
+    t0 = time.perf_counter()
+    for n in sorted(SLOT_LADDER, reverse=True):
+        ex.warmup(n, 1)
+    warm_s = time.perf_counter() - t0
+    k1_warm = k1.LAUNCHES
+    assert k1_warm == n_pre * len(SLOT_LADDER), ("prefills' K1", k1_warm)
+    assert k1.LAUNCHES_BY_BODY["cuda_cores"] == k1_warm, k1.LAUNCHES_BY_BODY
+    assert ex.captures == len(SLOT_LADDER) == ex.cache_stats.misses
+    print(f"[tokens] {cfg.name} decode executor: {len(SLOT_LADDER)} slot "
+          f"buckets {sorted(SLOT_LADDER)} warmed largest first in "
+          f"{warm_s:.1f}s ({ex.cache_stats.compile_time_s:.1f}s charged as "
+          f"compile time: each bucket's prefill through K1, {k1_warm} K1 "
+          f"launches in all, and {ex.capture_time_s:.1f}s capturing "
+          f"{ex.captures} CUDA graphs); caches {sum(SLOT_LADDER)} slots x "
+          f"{ex.kv_bytes_per_item / 1e6:.1f} MB; {free:.2f} GiB free on "
+          f"the card before the init, {_free_gib():.2f} after the warm-up; "
+          f"memory reserved {torch.cuda.memory_reserved() / 2 ** 30:.2f} "
+          f"GiB, of which parameters {ex.param_bytes / 2 ** 30:.2f}")
+    for n in SLOT_LADDER:
+        r = _ladder_rung(ex, cfg, n, n_attn)
+        h = r["host"]
+        print(f"[tokens] slot bucket {n:>2}: decode step host clock median "
+              f"{h[len(h) // 2]:.3f} ms (20 replays, {h[0]:.3f}-{h[-1]:.3f}); "
+              f"one traced replay: device busy {r['busy']:.3f} ms over a "
+              f"{r['span']:.3f} ms span (idle share "
+              f"{1 - r['busy'] / r['span']:.1%}, {r['n_events']} device "
+              f"activities), K2 {r['k2']:.3f} ms over {n_attn} kernels, "
+              f"head product {r['head']:.3f} ms over its {r['n_head']} "
+              f"kernels ({r['head'] / r['busy']:.1%} of busy); launches "
+              f"recorded at capture {r['launches']}")
+
+    trace = ragged_decode_trace(64, seed=0, rate_rps=12.0, prefill_mean=512,
+                                decode_mean=96, decode_sigma=0.8)
+    ex.cache_stats.reset_counters()
+    ex.replayed_launches.clear()
+    _reset_launches()
+    t0 = time.perf_counter()
+    rep = run_continuous(trace, ex, max_slots=16, prefill_mode="cotenant",
+                         ttft_slo_s=1.0, tpot_slo_s=0.050)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    eager = kernels.launch_counts()
+    assert not any(eager.values()), ("launches outside the graphs", eager)
+    cs = ex.cache_stats
+    decode = ex.replayed_launches["decode"]
+    replays = {n: e.replays for n, e in sorted(ex._exec.items())}
+    print(f"[tokens] run_continuous ({len(trace)} requests at 12 req/s, "
+          f"prompts about {PROMPT}, decode lengths lognormal mean 96; 16 "
+          f"slots, cotenant prefill at the measured {pre[2]:.3f} ms; TTFT "
+          f"SLO 1 s, TPOT SLO 50 ms; the engine's clock advanced by each "
+          f"measured step) in {run_s:.1f}s: goodput "
+          f"{rep['goodput_tokens_s']:.1f} tok/s, throughput "
+          f"{rep['throughput_tokens_s']:.1f} tok/s, TTFT p95 "
+          f"{rep['ttft_p95_s'] * 1e3:.2f} ms (attainment "
+          f"{rep['ttft_attainment']:.3f}), TPOT p95 "
+          f"{rep['tpot_p95_s'] * 1e3:.3f} ms (attainment "
+          f"{rep['tpot_attainment']:.3f}), mean live slots "
+          f"{rep['mean_live_slots']:.2f}, {rep['steps']} steps, "
+          f"{rep['tokens_out']} tokens; submitted {rep['submitted']} = "
+          f"completed {rep['completed']} + rejected {rep['rejected']} + "
+          f"backlog {rep['backlog']}; bucket misses {cs.misses} and stale "
+          f"hits {cs.stale_hits} after the warm-up, replays per bucket "
+          f"{replays}")
+    assert rep["conserved"] and rep["completed"] == len(trace), rep
+    assert not rep["truncated"]
+    assert cs.misses == 0, ("bucket-cache misses after warm-up", cs.misses)
+    assert cs.stale_hits == 0, ("stale buckets served", cs.stale_hits)
+    assert decode == n_attn * rep["steps"] > 0, (decode, rep["steps"])
+    del ex
+    torch.cuda.empty_cache()
+    return {"flash": k1_warm, "decode": decode}
 
 
 def _tune_classes() -> list:
@@ -1826,6 +2059,8 @@ def main() -> None:
     mark("graphs")
     launches, by_path = phase_serving()
     mark("serving")
+    by_path["tokens"] = phase_tokens()
+    mark("tokens")
     launches["paged"] = phase_autotune()
     mark("autotune")
     print("[done] seconds by phase: " + ", ".join(

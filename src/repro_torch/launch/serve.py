@@ -6,6 +6,8 @@ controller and report the approach, steady knobs, throughput and p95.
         --real --autotune --profile-store .profile_store
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
         --tiny --real --device cpu --prompt-len 32 --new-tokens 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --token-engine \
+        --slots 16 --requests 200
 
 Counterpart of ``repro.launch.serve``'s ``--arch ... --real`` path.  A
 served request is a prompt prefill plus greedy decode steps (the reference
@@ -24,8 +26,15 @@ wrappers read the cache only.  ``--profile-store`` reloads persisted
 surface rows of this architecture and device before serving and persists
 this run's probing after it; rows are keyed by the autotuner's backend
 key, so rows measured on a card never seed a CPU run, nor the reverse.
-The paper-job, cluster, churn, token-engine and partition modes are not
-ported yet.
+
+``--token-engine`` serves a decode job token by token
+(``serving.token_engine``; ``--prefill-mode disagg`` through
+``serving.disagg``) priced on ``SimExecutor``, as the reference's does:
+it needs no card, and ``--arch`` defaults to ``gemma2-2b``.  Its measured
+counterpart is ``decode_executor_for``, a ``RealExecutor`` over one decode
+step that ``token_engine.run_continuous`` drives slot bucket by slot
+bucket.  The paper-job, cluster, churn, scenario and partition modes are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -36,7 +45,7 @@ import os
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import InputShape, get_config
+from repro_torch.configs.base import InputShape, get_config, torch_dtype
 from repro_torch.core.controller import (ClipperController, DNNScalerController,
                                          StaticController)
 from repro_torch.core.matrix_completion import LatencyEstimator, SurfaceLibrary
@@ -45,7 +54,7 @@ from repro_torch.perf import autotune
 from repro_torch.perf.profile_store import ProfileStore
 from repro_torch.serving import device_model as dm
 from repro_torch.serving.engine import ServingEngine
-from repro_torch.serving.executor import RealExecutor
+from repro_torch.serving.executor import ACT_MULT, RealExecutor
 from repro_torch.serving.workload import PAPER_JOBS
 
 
@@ -97,12 +106,186 @@ def real_executor_for(arch: str, tiny: bool = False, *, device=None,
     return RealExecutor(serve_fn, params, make_batch), cfg
 
 
+def decode_act_bytes(cfg) -> float:
+    """Activation bytes one slot adds to a decode step: its float32 logits
+    and, amplified by ``ACT_MULT`` as the executor amplifies a batch's
+    bytes, one token's widest activations of a layer in the model's dtype
+    (the residual and its norm, q, k and v, the gated MLP's two rows)."""
+    row = (2 * cfg.d_model + (cfg.num_heads + 2 * cfg.num_kv_heads)
+           * cfg.head_dim + 2 * cfg.d_ff)
+    return 4.0 * cfg.vocab_size + ACT_MULT * row * torch_dtype(cfg).itemsize
+
+
+def decode_executor_for(arch: str, tiny: bool = False, *, device=None,
+                        prompt_len: int = 512, kv_budget: int = 1024,
+                        seed: int = 0) -> tuple:
+    """(RealExecutor, cfg, profile) over ONE decode step, the callable the
+    token engine's ``run_token_step`` times: the bucket ladder is the slot
+    ladder, and on a CUDA device each slot bucket is one CUDA graph.
+
+    Where the cache lives: in each bucket's static batch.  ``make_batch(n)``
+    prefills ``n`` random ``prompt_len``-token prompts (``api.make_batch``,
+    seeded) into a cache of ``kv_budget`` positions and returns ``{"cache",
+    "tokens": the prefill's argmax ids, "pos": prompt_len}`` on the device.
+    The executor builds it once per bucket, charged to ``compile_time``
+    with the capture, and keeps it as long as the bucket lives.  Every run
+    decodes position ``prompt_len`` against that same cache: each step is a
+    real decode step at a fixed depth, the cache never grows, and a slot's
+    tokens are not its request's tokens (as the reference's ``run_step``
+    replays its executable on the bucket's batch).
+
+    Memory admission: on a CUDA device ``mem_bytes`` is the card's memory;
+    a slot is charged its activations (``decode_act_bytes``, so ``fits``
+    never prefills a batch to estimate them) and its KV cache at
+    ``kv_budget`` positions (``kv_bytes_per_item``), as
+    ``token_engine.memory_slot_cap`` requires.  ``profile`` is the priced
+    decode profile at that budget, also set as ``executor.profile`` for
+    ``run_continuous``; its ``prefill_ms`` is priced, and a caller that
+    reports measured times replaces it with a measured prefill."""
+    if not 0 < prompt_len < kv_budget:
+        raise ValueError(f"prompt_len {prompt_len} must lie in (0, "
+                         f"kv_budget {kv_budget})")
+    dev = resolve_device(device)
+    cfg = get_config(arch, tiny=tiny).replace(kernel_impl="pallas")
+    params = api.init_params(cfg, seed=seed, device=dev)
+
+    def step_fn(params, batch):
+        return api.decode_step(params, batch["cache"], batch["tokens"],
+                               batch["pos"], cfg)[0]
+
+    def make_batch(n):
+        shp = InputShape("decode", prompt_len, n, "prefill")
+        prompt = api.make_batch(cfg, shp, seed=seed + 1, device=dev)
+        logits, cache = api.prefill(params, prompt, cfg, capacity=kv_budget)
+        return {"cache": cache, "tokens": logits.argmax(-1).to(torch.int32),
+                "pos": torch.full((), prompt_len, dtype=torch.int32,
+                                  device=dev)}
+
+    mem = (torch.cuda.get_device_properties(dev).total_memory
+           if dev.type == "cuda" else None)
+    executor = RealExecutor(
+        step_fn, params, make_batch, mem_bytes=mem,
+        act_bytes_per_item=decode_act_bytes(cfg),
+        kv_bytes_per_item=dm.kv_cache_bytes(
+            cfg, kv_budget, dtype_bytes=torch_dtype(cfg).itemsize))
+    profile = dm.llm_profile(cfg, mode="decode", kv_seq_budget=kv_budget)
+    executor.profile = profile
+    return executor, cfg, profile
+
+
+def warn_truncated(agg: dict) -> None:
+    if agg.get("truncated"):
+        print("WARNING: run truncated at max_steps — metrics cover a "
+              "partial horizon, not the full simulated window")
+
+
+def serve_tokens(args) -> None:
+    """``--token-engine``: one decode job served token by token, priced on
+    ``SimExecutor``; the reference's ``serve --token-engine`` branch."""
+    from repro_torch.serving.token_engine import (ragged_decode_trace,
+                                                  run_token_serving)
+    cfg = get_config(args.arch or "gemma2-2b")
+    prof = dm.llm_profile(cfg, mode="decode", kv_seq_budget=1024)
+    trace = ragged_decode_trace(args.requests, args.seed,
+                                rate_rps=args.rate_rps)
+    if args.prefill_mode == "disagg":
+        from repro_torch.serving.disagg import run_disagg_serving
+        rep = run_disagg_serving(
+            prof, seed=args.seed, trace=trace,
+            n_prefill=args.prefill_pool, kv_seq_budget=1024,
+            max_slots=args.slots, mtl=args.mtl,
+            ttft_slo_s=args.ttft_slo_ms / 1e3,
+            tpot_slo_s=args.tpot_slo_ms / 1e3,
+            use_controller=args.controller == "hybrid")
+        warn_truncated(rep)
+        assert rep["conserved"], "request conservation violated"
+        fab = rep["fabric"]
+        print(f"token-engine[{cfg.name}] disagg: "
+              f"{args.prefill_pool}-member prefill pool over "
+              f"{fab['interconnect']} "
+              f"({fab['bw_bps'] / 1e9:.0f} GB/s): goodput "
+              f"{rep['goodput_tokens_s']:.0f} tok/s, TTFT p95 "
+              f"{rep['ttft_p95_s'] * 1e3:.0f}ms (attain "
+              f"{rep['ttft_attainment']:.3f}), TPOT p95 "
+              f"{rep['tpot_p95_s'] * 1e3:.2f}ms (attain "
+              f"{rep['tpot_attainment']:.3f}), KV moved "
+              f"{fab['bytes_moved'] / 1e9:.1f} GB in "
+              f"{fab['transfers']} transfers "
+              f"({fab['busy_s'] * 1e3:.0f}ms on the wire)")
+        return
+    policies = (["continuous", "static"] if args.token_policy == "both"
+                else [args.token_policy])
+    print(f"token-engine[{cfg.name}]: {len(trace)} requests @ "
+          f"{args.rate_rps:.1f} req/s, {args.slots} slots, "
+          f"prefill={args.prefill_mode}, TTFT SLO "
+          f"{args.ttft_slo_ms:.0f}ms / TPOT SLO "
+          f"{args.tpot_slo_ms:.1f}ms")
+    reports = {}
+    for pol in policies:
+        rep = run_token_serving(
+            prof, policy=pol, seed=args.seed, trace=trace,
+            max_slots=args.slots, static_bs=args.slots, mtl=args.mtl,
+            ttft_slo_s=args.ttft_slo_ms / 1e3,
+            tpot_slo_s=args.tpot_slo_ms / 1e3,
+            use_controller=args.controller == "hybrid",
+            prefill_mode=args.prefill_mode,
+            chunk_tokens=args.prefill_chunk)
+        warn_truncated(rep)
+        assert rep["conserved"], "request conservation violated"
+        reports[pol] = rep
+        print(f"  {pol:>10}: goodput {rep['goodput_tokens_s']:.0f} "
+              f"tok/s (throughput {rep['throughput_tokens_s']:.0f}), "
+              f"TTFT p95 {rep['ttft_p95_s']*1e3:.0f}ms "
+              f"(attain {rep['ttft_attainment']:.3f}), TPOT p95 "
+              f"{rep['tpot_p95_s']*1e3:.2f}ms "
+              f"(attain {rep['tpot_attainment']:.3f}), "
+              f"mean live slots {rep['mean_live_slots']:.1f}, "
+              f"conservation OK")
+    if len(reports) == 2:
+        ratio = (reports["continuous"]["goodput_tokens_s"]
+                 / max(reports["static"]["goodput_tokens_s"], 1e-9))
+        print(f"  continuous/static goodput ratio: {ratio:.2f}x")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, help="assigned architecture id")
+    ap.add_argument("--arch", default=None,
+                    help="assigned architecture id (--token-engine: "
+                         "default gemma2-2b)")
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--real", action="store_true",
-                    help="wall-clock executor (the only mode ported so far)")
+                    help="wall-clock executor on the device")
+    ap.add_argument("--token-engine", action="store_true",
+                    help="token-level continuous batching for a decode "
+                         "job: bs = max live decode slots, admit-on-free-"
+                         "slot / evict-on-EOS, TTFT+TPOT SLOs "
+                         "(serving.token_engine), priced")
+    ap.add_argument("--token-policy", default="both",
+                    choices=["continuous", "static", "both"],
+                    help="slot engine, fixed-shape bucketed baseline, or "
+                         "both on the same ragged trace")
+    ap.add_argument("--slots", type=int, default=16,
+                    help="max live decode slots (continuous) / batch size "
+                         "(static baseline) for --token-engine")
+    ap.add_argument("--requests", type=int, default=300,
+                    help="trace length for --token-engine")
+    ap.add_argument("--rate-rps", type=float, default=12.0,
+                    help="arrival rate for the --token-engine trace")
+    ap.add_argument("--ttft-slo-ms", type=float, default=1000.0)
+    ap.add_argument("--tpot-slo-ms", type=float, default=50.0)
+    ap.add_argument("--prefill-mode", default="cotenant",
+                    choices=["cotenant", "timeslice", "chunked", "disagg"],
+                    help="prefill priced as a co-resident tenant, "
+                         "time-sliced on the decode tenant, split into "
+                         "fixed token-budget chunks piggybacked on decode "
+                         "steps, or disaggregated onto a dedicated "
+                         "prefill pool with KV streamed over the "
+                         "interconnect (serving.disagg)")
+    ap.add_argument("--prefill-pool", type=int, default=2,
+                    help="--prefill-mode disagg: prefill-pool members")
+    ap.add_argument("--prefill-chunk", type=int, default=256,
+                    help="--prefill-mode chunked: prefill tokens "
+                         "piggybacked per decode step")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--controller", default="dnnscaler",
                     choices=["dnnscaler", "hybrid", "clipper", "static"])
@@ -127,8 +310,14 @@ def main() -> None:
                          "rows before serving and persist this run's "
                          "probing afterwards")
     args = ap.parse_args()
+    if args.token_engine:
+        serve_tokens(args)
+        return
     if not args.real:
-        ap.error("only --real is ported to repro_torch so far")
+        ap.error("only --real and --token-engine are ported to repro_torch "
+                 "so far")
+    if args.arch is None:
+        ap.error("--real needs --arch")
 
     autotune.configure(cache_dir=args.autotune_cache_dir,
                        tune_on_miss=args.autotune or None)

@@ -69,7 +69,12 @@ def _route(hg: torch.Tensor, p: dict, cfg, C: int):
     """hg: (g, n, d) -> dispatch (g,n,E,C), combine (g,n,E,C), aux scalar."""
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     probs = torch.softmax(router_logits(hg, p), dim=-1)           # (g, n, E)
-    gate_vals, gate_idx = torch.topk(probs, K, dim=-1)            # (g, n, K)
+    # the first K of a stable descending sort: among equal values the lower
+    # index comes first, as ``lax.top_k`` orders them (``torch.topk`` does
+    # not promise an order for ties)
+    gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True,
+                                     stable=True)
+    gate_vals, gate_idx = gate_vals[..., :K], gate_idx[..., :K]   # (g, n, K)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
 
     # Slot-major cumulative position inside each expert's capacity buffer

@@ -9,7 +9,7 @@ from them.
 The reference's ``Roofline`` analysis (FLOPs, bytes and collective bytes
 read from a compiled XLA module) is not ported: it needs an extractor of
 the same operation classes from a PyTorch program, which comes with the
-cost model (ROADMAP queue 1, item 6).
+cost model (ROADMAP queue 1, item 4).
 """
 
 from __future__ import annotations

@@ -566,3 +566,22 @@ class RealExecutor:
             "dynamic_power_w": max(self.peak_w * 0.6 - self.idle_w, 0.0),
             "throughput": items / lat,
         }
+
+    # -- token engine --------------------------------------------------------
+    def run_token_step(self, live_slots: int, mtl: int = 1, *,
+                       prefill_tenants: int = 0,
+                       extra_slots: float = 0.0) -> dict:
+        """One measured decode step with `live_slots` slots occupied: the
+        callable IS the decode-step function (``launch.serve.
+        decode_executor_for``), and the bucket ladder doubles as the slot
+        ladder (a step at 13 live slots replays the 16-slot bucket; padding
+        slots don't count as tokens).  A co-resident prefill on this
+        single-process host shares the clock it is measured on, so no
+        pricing term is added for `prefill_tenants`.  Chunked-prefill
+        `extra_slots` widen the measured batch (rounded up to whole rows)
+        without counting as output tokens."""
+        width = live_slots + int(np.ceil(extra_slots))
+        r = self.run_step(width, mtl)
+        r["tokens"] = live_slots * mtl
+        r["items"] = r["tokens"]
+        return r

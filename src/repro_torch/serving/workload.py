@@ -108,14 +108,15 @@ def long_prefill_trace(n_requests: int = 300, seed: int = 0, *,
     prompts average `prefill_mean` >= 2048 tokens while outputs stay
     short — the regime where prompt processing, not decode, owns the
     device and prefill/decode disaggregation pays (serving/disagg.py,
-    benchmarks/disagg_benches.py).
-
-    Not ported yet: it draws from the token engine's
-    ``ragged_decode_trace``, which comes with ROADMAP.md queue 1 item 4
-    (token engine and disaggregation)."""
-    raise NotImplementedError(
-        "long_prefill_trace needs the token engine, which is not ported yet "
-        "(ROADMAP.md queue 1 item 4: token engine and disaggregation)")
+    benchmarks/disagg_benches.py)."""
+    from repro_torch.serving.token_engine import ragged_decode_trace
+    if prefill_mean < 2048:
+        raise ValueError("long_prefill_trace is the long-prompt regime: "
+                         "prefill_mean >= 2048")
+    return ragged_decode_trace(n_requests, seed, rate_rps=rate_rps,
+                               prefill_mean=prefill_mean,
+                               decode_mean=decode_mean,
+                               decode_sigma=decode_sigma)
 
 
 # ---------------------------------------------------------------------------

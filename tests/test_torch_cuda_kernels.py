@@ -63,6 +63,7 @@ DECODE_CASES = [
     (2, 384, 10, 5, 32, 65, None, 40.0),
     (1, 256, 8, 2, 64, 0, None, None),
     (2, 1500, 16, 16, 64, 1499, None, None),   # Whisper's cross-attention
+    (1, 1024, 8, 4, 256, 512, None, 50.0),     # gemma2's decode step
 ]
 DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}
 SSD_CASES = [

@@ -45,7 +45,10 @@ def test_port_imports_with_jax_and_reference_blocked():
             "repro_torch.serving.executor", "repro_torch.serving.engine",
             "repro_torch.core.controller", "repro_torch.launch.serve",
             "repro_torch.perf.autotune", "repro_torch.perf.profile_store",
-            "repro_torch.perf.roofline", "repro_torch.serving.workload"]
+            "repro_torch.perf.roofline", "repro_torch.serving.workload",
+            "repro_torch.serving.partition",
+            "repro_torch.serving.token_engine",
+            "repro_torch.serving.disagg"]
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[m] = None\n"

@@ -183,3 +183,23 @@ def test_init_moe_leaves_match_reference(arch, dtype):
         assert abs(std - 0.02) < 0.002, (name, std)
         assert abs(stack[name].float().mean().item()) < 0.002, name
     assert not torch.equal(stack["wi"][0], stack["wi"][1])
+
+
+def test_route_breaks_exact_ties_as_reference():
+    """Rows 3-7 of one (1, 8, 16) group are zero, so their router logits
+    are all 0: an exact tie among every expert.  ``lax.top_k`` puts the
+    lower index first among equal values; the port must pick the same
+    experts, which also decides, through slot-major priority, which
+    untied rows keep their capacity slots, and the aux loss."""
+    cj, ct = (c.replace(d_model=16, num_experts=8)
+              for c in _configs("qwen3_moe_30b_a3b", None, None, "float32"))
+    pj, pt = _both(cj, seed=8)
+    h = np.random.default_rng(9).standard_normal((1, 8, 16)).astype(
+        np.float32)
+    h[:, 3:] = 0.0
+    C = moe.capacity(8, ct.num_experts, ct.num_experts_per_tok)
+    dj, cbj, auxj = jmoe._route(jnp.asarray(h), pj, cj, C)
+    dt, cbt, auxt = moe._route(torch.from_numpy(h), pt, ct, C)
+    np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
+    _close(cbt, cbj, 1e-6)
+    _close(auxt, auxj, 1e-6)

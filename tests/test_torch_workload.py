@@ -84,9 +84,17 @@ def test_seeded_serving_loop_bit_identical(case):
     np.testing.assert_equal(port[1], ref[1])
 
 
-def test_long_prefill_trace_names_the_unported_token_engine():
-    with pytest.raises(NotImplementedError, match="token engine"):
-        port_wl.long_prefill_trace(4, seed=0)
+@pytest.mark.parametrize("seed", [0, 3])
+def test_long_prefill_trace_matches_the_reference(seed):
+    kw = dict(rate_rps=6.0, prefill_mean=3000, decode_mean=64,
+              decode_sigma=1.0)
+    port = port_wl.long_prefill_trace(50, seed, **kw)
+    ref = ref_wl.long_prefill_trace(50, seed, **kw)
+    assert [dataclasses.asdict(r) for r in port] == \
+        [dataclasses.asdict(r) for r in ref]
+    for wl in (port_wl, ref_wl):
+        with pytest.raises(ValueError, match="long-prompt"):
+            wl.long_prefill_trace(4, seed, prefill_mean=1024)
 
 
 class _Parsed(Exception):
@@ -118,3 +126,20 @@ def test_serve_defaults_to_the_reference_controller(monkeypatch):
     choices = {p: next(a.choices for a in p._actions
                        if a.dest == "controller") for p in (ref, port)}
     assert choices[port] == choices[ref]
+
+
+@pytest.mark.parametrize("mode", ["cotenant", "disagg"])
+def test_serve_token_engine_prints_what_the_reference_prints(mode, capsys,
+                                                              monkeypatch):
+    """``serve --token-engine`` prices on ``SimExecutor`` in both packages
+    (no card, ``--arch`` defaulting to gemma2-2b) and prints the same
+    lines."""
+    argv = ["serve", "--token-engine", "--requests", "40", "--prefill-mode",
+            mode]
+    out = {}
+    for name, serve in (("ref", ref_serve), ("port", port_serve)):
+        monkeypatch.setattr("sys.argv", argv)
+        serve.main()
+        out[name] = capsys.readouterr().out
+    assert out["port"] == out["ref"]
+    assert "token-engine[gemma2-2b]" in out["port"]
