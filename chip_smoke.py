@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Eight phases, any failure fatal, all in a temporary autotune store, so a
+Nine phases, any failure fatal, all in a temporary autotune store, so a
 stale ``.profile_store/`` in the working directory changes nothing:
   1. toolchain: torch / CUDA / nvcc versions, the card, TF32 off;
   2. build the four CUDA kernels from src/repro_torch/kernels/csrc with
@@ -96,7 +96,16 @@ stale ``.profile_store/`` in the working directory changes nothing:
      nothing and the generation bumps once per class; a view off the
      16-byte rule of the tuned flash class takes the CUDA-core body at its
      own tile; then a short SmolLM serving run on the tuned cache with
-     zero misses and zero stale hits after warm-up.
+     zero misses and zero stale hits after warm-up;
+  9. fleet (``phase_fleet``, on the host): the paper's 30-job Table-4
+     fleet as ``serve --cluster`` prices it (``run_paper_cluster`` in
+     ``auto`` mode, 12 simulated Tesla P40s, 90 s, seed 0), its aggregate
+     printed, run again through ``VectorClusterEngine`` and held equal;
+     ``serve --job 5`` under DNNScaler; and the cost model's live features
+     (``features_for_served_module``: the served decode step and prefill
+     traced on meta tensors at full width) of the seven models the script
+     serves, none missing.  These price the reference's simulated devices:
+     no number of this phase is a measurement of the card.
 
 Phases 4-6 run Qwen3-MoE last, its 61 GB of weights made after the
 model before it is freed, and print the card's free memory before its
@@ -111,6 +120,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import re
@@ -148,6 +158,7 @@ from repro_torch.kernels.flash_attention import \
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan as k4  # noqa: E402
+from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch.serve import (decode_executor_for,  # noqa: E402
                                       make_controller, real_executor_for)
 from repro_torch.models import api, layers, moe, transformer  # noqa: E402
@@ -155,6 +166,9 @@ from repro_torch.models.mamba import ssd_chunked  # noqa: E402
 from repro_torch.perf import autotune  # noqa: E402
 from repro_torch.perf.roofline import (BF16_FLOPS, F32_FLOPS,  # noqa: E402
                                        HBM_BPS, TF32_FLOPS)
+from repro_torch.perf import cost_model  # noqa: E402
+from repro_torch.serving import device_model as dm  # noqa: E402
+from repro_torch.serving.cluster import run_paper_cluster  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.executor import CudaGraphs, tensor_leaves  # noqa: E402
 from repro_torch.serving.token_engine import (  # noqa: E402
@@ -2035,6 +2049,69 @@ def phase_autotune() -> int:
     return launches["paged"]
 
 
+# phase 9: the seven models this script serves, traced for the cost
+# model's live features at full width
+FLEET_ARCHS = (ARCH, SSM_ARCH, HYBRID_ARCH, VLM_ARCH, ENCDEC_ARCH, MOE_ARCH,
+               TOKEN_ARCH)
+
+
+def _report_json(rep: dict) -> str:
+    """A report as one canonical string: equal strings, equal reports
+    (NaN included, which ``==`` on the dicts would call unequal)."""
+    return json.dumps(rep, sort_keys=True, default=repr)
+
+
+def phase_fleet() -> None:
+    """The paper's fleet and the analysis layers, priced on the host as
+    the reference prices them (module docstring, phase 9)."""
+    t = time.perf_counter()
+    reps = {}
+    for vectorized in (False, True):
+        t1 = time.perf_counter()
+        reps[vectorized] = run_paper_cluster(
+            "auto", n_devices=12, sim_time_limit=90.0, seed=0,
+            vectorized=vectorized)
+        agg = reps[vectorized]["aggregate"]
+        engine = "VectorClusterEngine" if vectorized else "ClusterEngine"
+        print(f"[fleet] {engine}: {agg['jobs']} Table-4 jobs on "
+              f"{agg['devices']} simulated P40s, 90 s: aggregate "
+              f"{agg['aggregate_throughput']} items/s, "
+              f"{agg['jobs_meeting_slo']}/{agg['feasible_jobs']} feasible "
+              f"jobs meet the SLO, stalls {agg['total_stall_s']} s "
+              f"({time.perf_counter() - t1:.1f}s)")
+    if _report_json(reps[False]) != _report_json(reps[True]):
+        raise SystemExit("[fleet] FAIL: VectorClusterEngine's report "
+                         "differs from ClusterEngine's")
+    argv, out = sys.argv, io.StringIO()
+    sys.argv = ["serve", "--job", "5", "--controller", "dnnscaler"]
+    try:
+        with contextlib.redirect_stdout(out):
+            serve_launcher.main()
+    finally:
+        sys.argv = argv
+    lines = out.getvalue().splitlines()
+    if not lines or not lines[0].startswith("job5 ") \
+            or "controller=dnnscaler" not in lines[0]:
+        raise SystemExit(f"[fleet] FAIL: serve --job 5 printed {lines}")
+    for line in lines:
+        print(f"[fleet] serve --job 5: {line.strip()}")
+    for arch in FLEET_ARCHS:
+        cfg = get_config(arch)
+        for phase in ("decode", "prefill"):
+            t1 = time.perf_counter()
+            feat = cost_model.features_for_served_module(
+                cfg, phase, dm.llm_profile(cfg, phase))
+            if feat is None:
+                raise SystemExit(f"[fleet] FAIL: no live features for "
+                                 f"{cfg.name} {phase}")
+            hist = ", ".join(f"{c} {x:.3f}" for c, x in
+                             zip(cost_model.OP_CLASSES, feat.op_hist))
+            print(f"[fleet] live features {cfg.name} {phase}: n_ops "
+                  f"{feat.n_ops:.0f}, FLOPs {feat.flops:.4e}, histogram "
+                  f"({hist}) ({time.perf_counter() - t1:.1f}s)")
+    print(f"[fleet] phase {time.perf_counter() - t:.1f}s")
+
+
 def main() -> None:
     t0 = time.perf_counter()
     store = tempfile.TemporaryDirectory(prefix="chip_smoke_autotune_")
@@ -2063,6 +2140,8 @@ def main() -> None:
     mark("tokens")
     launches["paged"] = phase_autotune()
     mark("autotune")
+    phase_fleet()
+    mark("fleet")
     print("[done] seconds by phase: " + ", ".join(
         f"{name} {t - prev:.1f}" for (_, prev), (name, t)
         in zip(marks, marks[1:])))

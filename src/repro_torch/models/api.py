@@ -32,10 +32,14 @@ def _model(cfg: ModelConfig):
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random parameters drawn from a ``torch.Generator`` seeded with
-    ``seed`` on the target device."""
+    ``seed`` on the target device.  On the meta device there is no
+    generator: the leaves get their shapes and dtypes and nothing is
+    drawn (``param_specs``)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     return _model(cfg).init_params(gen, cfg, dev)
 
 
@@ -106,6 +110,40 @@ def make_batch(cfg: ModelConfig, shape: InputShape, seed: int = 0,
         batch[name] = (torch.randn((B, n, cfg.d_model), generator=gen,
                                    device=dev) * 0.02).to(torch_dtype(cfg))
     return batch
+
+
+def batch_shapes(cfg: ModelConfig, shape: InputShape) -> dict:
+    """{name: (shape, dtype)} for each model input of this (arch,
+    input-shape), as the reference's ``batch_shapes``."""
+    B, S = shape.global_batch, shape.seq_len
+    out = {}
+    if shape.kind in ("train", "prefill"):
+        out["tokens"] = ((B, _text_len(cfg, S)), torch.int32)
+        if cfg.frontend == "vision_stub":
+            out["patch_embeds"] = ((B, cfg.num_frontend_tokens, cfg.d_model),
+                                   torch_dtype(cfg))
+        if cfg.frontend == "audio_stub":
+            out["audio_embeds"] = ((B, cfg.encoder_seq_len, cfg.d_model),
+                                   torch_dtype(cfg))
+    else:  # decode: one token against a cache of S
+        out["tokens"] = ((B,), torch.int32)
+    return out
+
+
+# Abstract inputs: meta tensors (shapes and dtypes, no storage), the
+# counterpart of the reference's ShapeDtypeStructs.
+def batch_specs(cfg: ModelConfig, shape: InputShape) -> dict:
+    return {name: torch.empty(shp, dtype=dt, device="meta")
+            for name, (shp, dt) in batch_shapes(cfg, shape).items()}
+
+
+def cache_specs(cfg: ModelConfig, shape: InputShape):
+    """Abstract KV/state cache for decode shapes (capacity = seq_len)."""
+    return init_cache(cfg, shape.global_batch, shape.seq_len, device="meta")
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    return init_params(cfg, device="meta")
 
 
 def prefill_len(batch) -> int:

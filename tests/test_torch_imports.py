@@ -48,13 +48,23 @@ def test_port_imports_with_jax_and_reference_blocked():
             "repro_torch.perf.roofline", "repro_torch.serving.workload",
             "repro_torch.serving.partition",
             "repro_torch.serving.token_engine",
-            "repro_torch.serving.disagg"]
+            "repro_torch.serving.disagg", "repro_torch.serving.sim_state",
+            "repro_torch.serving.replay", "repro_torch.serving.cluster",
+            "repro_torch.perf.cost_model", "repro_torch.perf.op_analysis",
+            "repro_torch.launch.report"]
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[m] = None\n"
             + "".join(f"import {m}\n" for m in mods)
             + "from repro_torch.configs.base import all_configs\n"
             "assert len(all_configs()) == 10\n"
+            # the cost model's live path traces the port's own module
+            "from repro_torch.configs.base import get_config\n"
+            "from repro_torch.perf import cost_model as cm\n"
+            "from repro_torch.serving import device_model as dm\n"
+            "cfg = get_config('smollm_360m', tiny=True)\n"
+            "assert cm.features_for_served_module(\n"
+            "    cfg, 'decode', dm.llm_profile(cfg, 'decode')) is not None\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
