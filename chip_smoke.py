@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Nine phases, any failure fatal, all in a temporary autotune store, so a
+Ten phases, any failure fatal, all in a temporary autotune store, so a
 stale ``.profile_store/`` in the working directory changes nothing:
   1. toolchain: torch / CUDA / nvcc versions, the card, TF32 off;
   2. build the four CUDA kernels from src/repro_torch/kernels/csrc with
@@ -87,7 +87,19 @@ stale ``.profile_store/`` in the working directory changes nothing:
      ms), then ``token_engine.run_continuous`` over them on a 64-request
      ragged trace: requests conserved, no bucket miss and no stale hit
      after the warm-up, every decode launch a replay's;
-  8. autotune: ``serve --autotune``'s tuning of the serving shape classes
+  8. train (``phase_train``): the blockwise attention's backward (float32,
+     SmolLM's and Gemma-2's shapes) against float64 autograd of a dense
+     softmax at 2e-5; ``api.train_loss`` and its gradients on the card
+     against the CPU in float32 (SmolLM-360M at full width cut to 2
+     layers, and the ten TINY configs) at 1e-4, and one bf16 step of each
+     TINY config as the reference's smoke test asks; then ``loop.train``,
+     SmolLM-360M at full width, 30 bf16 AdamW steps at 8 x 256 on the
+     synthetic corpus, its loss falling by at least 0.15: step ms,
+     tokens/s, peak memory over 2 steps with and without remat, one step
+     traced (busy, idle share, top kernels).  Every model runs with
+     ``kernel_impl="pallas"`` and the four launch counts stay 0: the
+     train path reaches no kernel (none has a backward); a JSON line;
+  9. autotune: ``serve --autotune``'s tuning of the serving shape classes
      (SmolLM-360M prefill, decode and paged decode; Mamba2-1.3B's SSD
      scan), every candidate timed through its kernel on the device alone
      (calls captured in a CUDA graph): the flash kernel at its four wgmma
@@ -97,7 +109,7 @@ stale ``.profile_store/`` in the working directory changes nothing:
      16-byte rule of the tuned flash class takes the CUDA-core body at its
      own tile; then a short SmolLM serving run on the tuned cache with
      zero misses and zero stale hits after warm-up;
-  9. fleet (``phase_fleet``, on the host): the paper's 30-job Table-4
+  10. fleet (``phase_fleet``, on the host): the paper's 30-job Table-4
      fleet as ``serve --cluster`` prices it (``run_paper_cluster`` in
      ``auto`` mode, 12 simulated Tesla P40s, 90 s, seed 0), its aggregate
      printed, run again through ``VectorClusterEngine`` and held equal;
@@ -139,8 +151,8 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs.base import (InputShape, get_config,  # noqa: E402
-                                       torch_dtype)
+from repro_torch.configs.base import (ARCH_IDS, InputShape,  # noqa: E402
+                                       get_config, torch_dtype)
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_attention import \
@@ -173,6 +185,10 @@ from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.executor import CudaGraphs, tensor_leaves  # noqa: E402
 from repro_torch.serving.token_engine import (  # noqa: E402
     ragged_decode_trace, run_continuous)
+from repro_torch.training import adamw  # noqa: E402
+from repro_torch.training.data import DataConfig, TokenStream  # noqa: E402
+from repro_torch.training.loop import (loss_and_grads, train,  # noqa: E402
+                                       train_step)
 
 DEV = torch.device("cuda")
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -283,6 +299,19 @@ MOE_ARCH, MOE_F32_LAYERS = "qwen3_moe_30b_a3b", 8
 # slots) and the decode steps of its model check
 TOKEN_ARCH, KV_BUDGET, TOKEN_STEPS = "gemma2_2b", 1024, 4
 SLOT_LADDER = (1, 2, 4, 8, 12, 16)
+# the train path: SmolLM-360M at full width, AdamW steps at batch x
+# sequence and lr; its card-against-CPU float32 check cut to TRAIN_CUT of
+# its 32 layers; the TINY configs' smoke shape (tests/test_models.py's);
+# the blockwise attention's gradients at SmolLM's and Gemma-2's shapes
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = (
+    "smollm_360m", 8, 256, 30, 3e-4)
+TRAIN_CUT = 2
+TRAIN_TINY_SHAPE = InputShape("smoke", 64, 2, "train")
+TRAIN_ATTN_CASES = (
+    ("smollm", (8, 256, 15, 5, 64), dict(causal=True)),
+    ("gemma2", (8, 512, 8, 4, 256), dict(causal=True, window=128,
+                                        logit_cap=50.0)),
+)
 # a logits row past its bound passes as a routing near-tie only if, at the
 # first layer where its routing differs between the two paths, no router
 # logit of its routing group has drifted by more than this (the JAX
@@ -1448,11 +1477,20 @@ def _model_run(arch: str, dtype: str, steps: int, layers_cut=None) -> None:
                  ("of which its chunk states", "ssd_chunk_state_kernel",
                   n_mamba),
                  ("and its output", "ssd_chunk_scan_kernel", n_mamba))
-        kern, busy, _, split = _profile_in(
-            run_prefill, tuple(k for _, k, _ in names), moe_split=is_moe)
+        # a trace loses a record now and then (Mamba2's prefill once
+        # counted 94 of its 96 SSD-scan kernels), which only ever lowers a
+        # count: up to three prefills are traced until one counts every
+        # kernel; a kernel the model missed or added shows in every trace
+        for attempt in range(3):
+            kern, busy, _, split = _profile_in(
+                run_prefill, tuple(k for _, k, _ in names), moe_split=is_moe)
+            counted = [n for _, n in kern]
+            if counted == [want for _, _, want in names]:
+                break
+            assert attempt < 2, ("kernels in a traced prefill", names,
+                                 counted)
         parts = []
         for (label, _, want), (ms, n) in zip(names, kern):
-            assert n == want, (label, n, want)
             if want:
                 parts.append(f"{label} {ms:.3f} ms over {n} kernels, "
                              f"{ms / pre_ms:.1%} of the prefill")
@@ -1472,10 +1510,12 @@ def _model_run(arch: str, dtype: str, steps: int, layers_cut=None) -> None:
         def run_step():
             api.decode_step(params, ck, tok, pos - 1, cfg_k)
 
-        (dec, ssd), busy, _, split = _profile_in(
-            run_step, ("::decode_kernel<", "ssd_"), moe_split=is_moe)
-        assert dec[1] == n_dec and ssd[1] == 0, ("decode step kernels", dec,
-                                                 ssd)
+        for attempt in range(3):       # as the prefill's trace above
+            (dec, ssd), busy, _, split = _profile_in(
+                run_step, ("::decode_kernel<", "ssd_"), moe_split=is_moe)
+            if dec[1] == n_dec and ssd[1] == 0:
+                break
+            assert attempt < 2, ("decode step kernels", dec, ssd)
         k2_part = (f"decode attention {dec[0]:.3f} ms over {dec[1]} kernels "
                    f"(one per attention call), {dec[0] / step_ms:.1%} of "
                    f"the step; " if n_dec else "")
@@ -1918,6 +1958,221 @@ def phase_tokens() -> dict:
     return {"flash": k1_warm, "decode": decode}
 
 
+def _dense_attention(q, k, v, causal, window, cap):
+    """Attention through a dense masked softmax in float64: the oracle of
+    the blockwise attention's gradients.  q (B, T, H, hd), k/v (B, T, KV,
+    hd), head h reading KV head h // G, as the port groups them."""
+    G = q.shape[2] // k.shape[2]
+    kk, vv = (x.double().repeat_interleave(G, dim=2) for x in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double() * q.shape[-1] ** -0.5, kk)
+    if cap is not None:
+        s = cap * torch.tanh(s / cap)
+    pos = torch.arange(q.shape[1], device=q.device)
+    mask = torch.ones_like(s[0, 0], dtype=torch.bool)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window is not None:
+        mask &= pos[None, :] > pos[:, None] - window
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vv)
+
+
+def _grad_err(got, want) -> float:
+    """max |got - want| over max |want|, leaf by leaf: the largest (a leaf
+    the loss does not reach has zero gradients on both sides)."""
+    return max(_maxerr(g, w) / max(w.float().abs().max().item(), 1e-30)
+               for g, w in zip(got, want))
+
+
+def _train_grads(params, batch, cfg, device):
+    """(loss, aux, gradient leaves copied to the host) of
+    ``api.train_loss`` on ``device``, from copies of ``params`` and
+    ``batch`` there."""
+    to = lambda x: x.to(device)  # noqa: E731
+    loss, m, grads = loss_and_grads(adamw.tree_map(to, params),
+                                    {k: to(v) for k, v in batch.items()}, cfg)
+    return (loss.item(), m["aux"].item(),
+            [g.cpu() for g in adamw.tree_leaves(grads)])
+
+
+def _train_step_trace(params, cfg, kw) -> dict:
+    """One ``loop.train_step`` (a fresh AdamW state, a batch of the
+    corpus) under torch.profiler: the device's activities, their busy ms,
+    the span from the first's start to the last's end, and the six names
+    with the most device time (ms, count)."""
+    tokens = torch.from_numpy(next(iter(TokenStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=kw["seq_len"],
+        batch_size=kw["batch_size"], seed=1))))).to(DEV)
+    opt = adamw.init(params)
+    train_step(params, opt, tokens, cfg, lr=kw["lr"], remat=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train_step(params, opt, tokens, cfg, lr=kw["lr"], remat=False)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert dev, "torch.profiler's trace holds no device time"
+    by_name = {}
+    for e in dev:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    return {"kernels": len(dev),
+            "busy_ms": sum(ms for ms, _ in by_name.values()),
+            "span_ms": (max(e.time_range.end for e in dev)
+                        - min(e.time_range.start for e in dev)) / 1e3,
+            "top": [(name, ms, n) for name, (ms, n) in top]}
+
+
+def phase_train() -> dict:
+    """Training on the card (``training/loop.py``, ``api.train_loss``,
+    ``adamw.update``), every model with ``kernel_impl="pallas"``: the train
+    path must reach no kernel (none has a backward), so the four launch
+    counts, set to 0 before the phase, must still be 0 after it.
+      1. the blockwise attention's gradients (``layers._Flash``'s
+         recomputing backward), float32, against autograd through a
+         dense masked softmax in float64, within 2e-5 of each largest
+         gradient, at SmolLM's and Gemma-2's shapes; the forward and
+         backward timed (20 calls between two CUDA events);
+      2. SmolLM-360M at full width but ``TRAIN_CUT`` layers, float32: one
+         ``train_loss`` and backward on the card against the same on the
+         CPU, each leaf within 1e-4 of its largest gradient;
+      3. every TINY config: one bf16 step (loss finite in (0, 20), its
+         gradient norm finite and > 0, as the reference's smoke test asks),
+         and in float32 the loss and gradients equal to the CPU's within
+         1e-4;
+      4. SmolLM-360M at full width, bf16: ``loop.train`` for
+         ``TRAIN_STEPS`` AdamW steps at ``TRAIN_BATCH`` x ``TRAIN_SEQ``, lr
+         ``TRAIN_LR``, on the synthetic corpus, its loss falling by at
+         least 0.15 (the reference's bar); step ms (median after the
+         first 3, host clock ended by reading the loss) and tokens/s; peak
+         memory (``max_memory_allocated``) over 2 steps with and without
+         ``remat``; one more step under torch.profiler (its device busy
+         time, idle share and the kernels with the most device time).
+    Prints the phase's figures as a JSON line; returns the launch
+    counts (all 0)."""
+    t_phase = time.perf_counter()
+    _reset_launches()
+    out = {"attention": {}}
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(23)
+    for name, (B, T, H, KV, hd), kw in TRAIN_ATTN_CASES:
+        q, k, v, do = (_rand(gen, shp, torch.float32, 1.0) for shp in
+                       ((B, T, H, hd), (B, T, KV, hd), (B, T, KV, hd),
+                        (B, T, H, hd)))
+        leaves = [x.requires_grad_() for x in (q, k, v)]
+        got = torch.autograd.grad(layers.flash_attention(q, k, v, **kw),
+                                  leaves, do)
+        want = torch.autograd.grad(
+            _dense_attention(q, k, v, kw["causal"], kw.get("window"),
+                             kw.get("logit_cap")), leaves, do.double())
+        errs = [_maxerr(g, w) / w.abs().max().item()
+                for g, w in zip(got, want)]
+        ms = _time_ms(lambda: torch.autograd.grad(
+            layers.flash_attention(q, k, v, **kw), leaves, do))
+        print(f"[train] blockwise attention {name} {(B, T, H, KV, hd)} "
+              f"{kw}, float32: dq / dk / dv against float64 autograd of a "
+              f"dense softmax, max err over max |grad| "
+              f"{', '.join(f'{e:.2e}' for e in errs)} (bound 2e-5); "
+              f"forward + backward {ms:.3f} ms")
+        assert max(errs) <= 2e-5, (name, errs)
+        out["attention"][name] = {"rel_err": errs, "fwd_bwd_ms": ms}
+
+    cfg = get_config(TRAIN_ARCH).replace(dtype="float32",
+                                         num_layers=TRAIN_CUT,
+                                         kernel_impl="pallas")
+    params = api.init_params(cfg, seed=0)
+    tokens = torch.from_numpy(next(iter(TokenStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        batch_size=TRAIN_BATCH, seed=0)))))
+    t0 = time.perf_counter()
+    card = _train_grads(params, {"tokens": tokens}, cfg, DEV)
+    host = _train_grads(params, {"tokens": tokens}, cfg, "cpu")
+    err = _grad_err(card[2], host[2])
+    print(f"[train] {cfg.name} float32 at full width, {TRAIN_CUT} of its "
+          f"{get_config(TRAIN_ARCH).num_layers} layers, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}: loss card "
+          f"{card[0]:.6f} / CPU {host[0]:.6f}; {len(card[2])} gradient "
+          f"leaves, max err over each leaf's max |grad| {err:.2e} (bound "
+          f"1e-4) ({time.perf_counter() - t0:.1f}s)")
+    assert abs(card[0] - host[0]) <= 1e-4 and err <= 1e-4, (card[0],
+                                                            host[0], err)
+    out["card_vs_cpu"] = {"loss": [card[0], host[0]], "rel_err": err}
+    del params, card, host
+
+    out["tiny"] = {}
+    for arch in ARCH_IDS:
+        cfg = get_config(arch, tiny=True).replace(kernel_impl="pallas")
+        batch = api.make_batch(cfg, TRAIN_TINY_SHAPE, seed=0)
+        params = api.init_params(cfg, seed=0)
+        loss, aux, grads = _train_grads(params, batch, cfg, DEV)
+        gnorm = math.sqrt(sum(g.float().square().sum().item()
+                              for g in grads))
+        assert math.isfinite(loss) and 0.0 < loss < 20.0, (arch, loss)
+        assert math.isfinite(gnorm) and gnorm > 0.0, (arch, gnorm)
+        f32 = cfg.replace(dtype="float32")
+        params = api.init_params(f32, seed=0)
+        batch = {k: v.float() if v.is_floating_point() else v
+                 for k, v in batch.items()}
+        card = _train_grads(params, batch, f32, DEV)
+        host = _train_grads(params, batch, f32, "cpu")
+        err = _grad_err(card[2], host[2])
+        print(f"[train] {cfg.name}: bf16 loss {loss:.4f}, aux {aux:.4f}, "
+              f"gradient norm {gnorm:.4f}; float32 loss card {card[0]:.6f} "
+              f"/ CPU {host[0]:.6f}, max leaf err {err:.2e} (bound 1e-4)")
+        assert abs(card[0] - host[0]) <= 1e-4 and err <= 1e-4, (arch, err)
+        out["tiny"][arch] = {"loss_bf16": loss, "gnorm_bf16": gnorm,
+                             "rel_err_f32": err}
+
+    cfg = get_config(TRAIN_ARCH).replace(kernel_impl="pallas")
+    kw = dict(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, lr=TRAIN_LR, seed=0)
+    peaks = {}
+    for remat in (True, False):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        run = train(cfg, steps=2, log_every=0, remat=remat, **kw)
+        peaks[remat] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        del run
+    torch.cuda.empty_cache()
+    run = train(cfg, steps=TRAIN_STEPS, log_every=10, **kw)
+    losses, step_s = run["losses"], sorted(run["step_s"][3:])
+    step_ms = step_s[len(step_s) // 2] * 1e3
+    tokens_s = TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3
+    print(f"[train] {cfg.name} bf16 at full width ({run['n_params']:,} "
+          f"params): loop.train, {TRAIN_STEPS} AdamW steps at {TRAIN_BATCH} "
+          f"x {TRAIN_SEQ}, lr {TRAIN_LR}: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (must fall by 0.15); step {step_ms:.2f} ms "
+          f"(median of steps 4-{TRAIN_STEPS}, {step_s[0] * 1e3:.2f}-"
+          f"{step_s[-1] * 1e3:.2f}), {tokens_s:.0f} tokens/s; peak memory "
+          f"over 2 steps {peaks[True]:.3f} GB with remat, "
+          f"{peaks[False]:.3f} GB without")
+    assert losses[-1] <= losses[0] - 0.15, losses
+    n_params = run["n_params"]
+    trace = _train_step_trace(run["params"], cfg, kw)
+    print(f"[train] one traced step ({TRAIN_BATCH} x {TRAIN_SEQ}, from the "
+          f"run's parameters): {trace['kernels']} device activities, busy "
+          f"{trace['busy_ms']:.2f} ms over a {trace['span_ms']:.2f} ms span "
+          f"(idle share {1 - trace['busy_ms'] / trace['span_ms']:.1%}); by "
+          f"device time: " + "; ".join(
+              f"{ms:.2f} ms x{n} {name[:70]}" for name, ms, n in trace["top"]))
+    del run
+    torch.cuda.empty_cache()
+    counts = kernels.launch_counts()
+    assert not any(counts.values()), ("the train path launched", counts)
+    out.update(full_width={
+        "arch": cfg.name, "n_params": n_params, "steps": TRAIN_STEPS,
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "step_ms": step_ms, "tokens_s": tokens_s,
+        "peak_gb_remat": peaks[True], "peak_gb_no_remat": peaks[False],
+        "traced_step": trace},
+        launches={n: counts[n] for n in ("flash", "decode", "paged",
+                                         "ssd_scan")},
+        seconds=time.perf_counter() - t_phase)
+    print(json.dumps({"train": out}))
+    return out["launches"]
+
+
 def _tune_classes() -> list:
     """(kernel, dtype, dims) of the serving shape classes at batch 8:
     SmolLM-360M's flash prefill and split-K decode, the paged decode
@@ -2049,7 +2304,7 @@ def phase_autotune() -> int:
     return launches["paged"]
 
 
-# phase 9: the seven models this script serves, traced for the cost
+# phase 10: the seven models this script serves, traced for the cost
 # model's live features at full width
 FLEET_ARCHS = (ARCH, SSM_ARCH, HYBRID_ARCH, VLM_ARCH, ENCDEC_ARCH, MOE_ARCH,
                TOKEN_ARCH)
@@ -2063,7 +2318,7 @@ def _report_json(rep: dict) -> str:
 
 def phase_fleet() -> None:
     """The paper's fleet and the analysis layers, priced on the host as
-    the reference prices them (module docstring, phase 9)."""
+    the reference prices them (module docstring, phase 10)."""
     t = time.perf_counter()
     reps = {}
     for vectorized in (False, True):
@@ -2138,6 +2393,8 @@ def main() -> None:
     mark("serving")
     by_path["tokens"] = phase_tokens()
     mark("tokens")
+    by_path["train"] = phase_train()
+    mark("train")
     launches["paged"] = phase_autotune()
     mark("autotune")
     phase_fleet()

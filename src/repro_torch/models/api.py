@@ -5,6 +5,7 @@ SSM, hybrid and the vision stub: ``transformer``) and the encoder-decoder
 
   init_params(cfg, seed=0, device=None)             -> params dict
   params_from_jax(tree, device=None)                -> params dict
+  train_loss(params, batch, cfg, remat=True)        -> (loss, {'ce', 'aux'})
   prefill(params, batch, cfg, capacity)             -> (last_logits, cache)
   decode_step(params, cache, tokens, pos, cfg)      -> (logits, cache)
   init_cache(cfg, batch, capacity, device=None)     -> cache
@@ -56,6 +57,12 @@ def params_from_jax(tree, device=None):
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.astype(np.float32)).to(dev, torch.bfloat16)
     return torch.from_numpy(np.array(arr)).to(dev)
+
+
+def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True):
+    """Next-token loss of ``batch`` (the reference's ``train_loss``),
+    differentiable by ``torch.autograd``; takes no kernel."""
+    return _model(cfg).train_loss(params, batch, cfg, remat=remat)
 
 
 def prefill(params, batch, cfg: ModelConfig, capacity: int):

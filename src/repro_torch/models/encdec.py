@@ -6,8 +6,9 @@ precomputed frame embeddings (B, encoder_seq_len, d_model).  The encoder
 is bidirectional; the decoder has causal self-attention (RoPE, cached at
 decode) plus cross-attention over per-layer encoder K/V computed once at
 prefill and kept in the cache.  Parameters keep the reference's layout:
-``enc_layers`` and ``dec_layers`` stacked on a leading layer axis.  Forward
-only (prefill and decode); the train mode waits for the training port.
+``enc_layers`` and ``dec_layers`` stacked on a leading layer axis.  Three
+modes, as the decoder-only models: train (``train_loss``), prefill and
+decode.
 
 The cache is the reference's: {'k','v': (L, B, KV, cap, hd), 'ck','cv':
 (L, B, S_enc, KV, hd)}.  Both modes write it in place.  On the kernel path
@@ -15,17 +16,19 @@ The cache is the reference's: {'k','v': (L, B, KV, cap, hd), 'ck','cv':
 cross-attention take the flash kernel with ``causal=False``, and the decode
 step's cross-attention the decode kernel over a transposed view of
 ``ck``/``cv`` (``layers.cross_attn_apply``), where the reference runs its
-pure-JAX blockwise attention for all three.
+pure-JAX blockwise attention for all three.  Training takes that plain
+attention everywhere, on either path.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import torch_dtype
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
-from repro_torch.models.transformer import layer_params
+from repro_torch.models.transformer import layer_params, unstack
 
 
 def init_params(gen: torch.Generator, cfg, device) -> dict:
@@ -48,28 +51,42 @@ def init_params(gen: torch.Generator, cfg, device) -> dict:
     return params
 
 
-def encode(params, audio_embeds: torch.Tensor, cfg) -> torch.Tensor:
+def encode(params, audio_embeds: torch.Tensor, cfg, *,
+           mode: str = "prefill") -> torch.Tensor:
     """audio_embeds: (B, S_enc, d), the stubbed frontend's output -> the
-    encoder's states."""
+    encoder's states.  ``mode="train"`` takes the plain attention, never
+    the kernel."""
     x = audio_embeds.to(torch_dtype(cfg))
     positions = torch.arange(x.shape[1], device=x.device)
-    for i in range(cfg.encoder_layers):
-        lp = layer_params(params["enc_layers"], i)
+    for lp in unstack(params["enc_layers"]):
         x, _ = L.attn_block_apply(lp["attn"], x, cfg, causal=False,
-                                  positions=positions, mode="prefill")
+                                  positions=positions, mode=mode)
         x = L.mlp_apply(lp["mlp"], x, cfg)
     return L.rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
 
 def _decoder_trunk(params, x, cfg, cache, *, mode, enc_out=None,
-                   positions=None, pos=None):
+                   positions=None, pos=None, remat=False):
     """Runs the decoder layers, writing ``cache`` in place.
 
     prefill: self-attention K/V of the T prompt positions at [0, T), and
     each layer's cross-attention K/V of ``enc_out`` into ``ck``/``cv``.
     decode: one token at slot ``pos`` (0-d int tensor on the device);
-    cross-attention reads ``ck``/``cv``."""
+    cross-attention reads ``ck``/``cv``.
+    train: no cache; ``remat`` checkpoints each layer's body (see
+    ``transformer.run_group_train``)."""
     n = cfg.num_layers
+    if mode == "train":
+        def body(y, lp):
+            y, _ = L.attn_block_apply(lp["attn"], y, cfg, mode="train",
+                                      positions=positions)
+            enc_kv = L.encode_kv(lp["cross"], enc_out, cfg)
+            y = L.cross_attn_apply(lp["cross"], y, enc_kv, cfg, mode="train")
+            return L.mlp_apply(lp["mlp"], y, cfg)
+        for lp in unstack(params["dec_layers"]):
+            x = (checkpoint(body, x, lp, use_reentrant=False) if remat
+                 else body(x, lp))
+        return x
     if mode == "prefill":
         T = x.shape[1]
         for i in range(n):
@@ -113,6 +130,23 @@ def init_cache(cfg, batch: int, capacity: int, device=None) -> dict:
             "v": zeros(Ld, batch, KV, capacity, hd),
             "ck": zeros(Ld, batch, Se, KV, hd),
             "cv": zeros(Ld, batch, Se, KV, hd)}
+
+
+def train_loss(params, batch, cfg, *, remat=True):
+    """batch: {'tokens': (B, T) int, 'audio_embeds': (B, S_enc, d)}.
+    Next-token cross-entropy of the decoder; aux is zero (no MoE).
+    Returns (loss, {'ce', 'aux'})."""
+    tokens = batch["tokens"]
+    enc_out = encode(params, batch["audio_embeds"], cfg, mode="train")
+    x = params["embed"][tokens].to(torch_dtype(cfg))
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    h = _decoder_trunk(params, x, cfg, None, mode="train", enc_out=enc_out,
+                       positions=positions, remat=remat)
+    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    ce = transformer.chunked_ce_loss(
+        params, h, *transformer.next_token_targets(tokens), cfg)
+    return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
+                                             device=x.device)}
 
 
 def prefill(params, batch, cfg, capacity: int):

@@ -4,8 +4,9 @@ self- and cross-attention), MLP, and their random init.
 Counterpart of ``repro.models.layers``: plain functions over explicit
 parameter dictionaries in the JAX package's layout.  Attention is blockwise
 (online softmax over KV blocks, query blocks in an outer loop), the plain
-PyTorch mirror of the flash kernel in ``repro_torch.kernels``.  Forward
-only: training is not part of this package yet.
+PyTorch mirror of the flash kernel in ``repro_torch.kernels``; its
+backward is the reference's custom VJP (``_Flash``), so the train mode
+never reaches a kernel, which has no backward.
 """
 
 from __future__ import annotations
@@ -106,7 +107,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 
 
 # ---------------------------------------------------------------------------
-# Blockwise flash attention (plain PyTorch) — prefill path.
+# Blockwise flash attention (plain PyTorch) — training and prefill path.
 # ---------------------------------------------------------------------------
 def _pad_axis(x: torch.Tensor, axis: int, multiple: int) -> torch.Tensor:
     pad = (-x.shape[axis]) % multiple
@@ -125,6 +126,117 @@ def _mask_for(qpos, kpos, causal, window, kv_len):
     return mask
 
 
+def _scores(qblk, kblk, logit_cap, qpos, kpos, causal, window, kv_len):
+    """qblk pre-scaled (B,bq,KV,G,hd) f32; kblk (B,bk,KV,hd) f32 ->
+    (s_capped, raw) both (B,KV,G,bq,bk) f32, masked with NEG_INF."""
+    raw = torch.einsum("bqkgd,bskd->bkgqs", qblk, kblk)
+    s = softcap(raw, logit_cap)
+    mask = _mask_for(qpos, kpos, causal, window, kv_len)
+    return torch.where(mask, s, torch.full_like(s, NEG_INF)), raw
+
+
+def _flash_fwd_res(static, q, k, v):
+    """q: (B, nq, bq, KV, G, hd); k/v: (B, nk, bk, KV, hd).
+    Returns (out (B,nq,bq,KV,G,hd) in q's dtype, lse (B,KV,G,nq,bq) f32)."""
+    causal, window, logit_cap, q_offset, kv_len = static
+    B, nq, bq, KV, G, hd = q.shape
+    nk, bk = k.shape[1], k.shape[2]
+    k = k.float()
+    scale = hd ** -0.5
+    dev = q.device
+    outs, lses = [], []
+    for qi in range(nq):
+        qblk = (q[:, qi] * scale).float()                      # (B,bq,KV,G,hd)
+        qpos = q_offset + qi * bq + torch.arange(bq, device=dev)
+        m = torch.full((B, KV, G, bq), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, KV, G, bq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, bq, KV, G, hd), dtype=torch.float32,
+                          device=dev)
+        for ki in range(nk):
+            kpos = ki * bk + torch.arange(bk, device=dev)
+            s, _ = _scores(qblk, k[:, ki], logit_cap, qpos, kpos, causal,
+                           window, kv_len)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(),
+                              v[:, ki].float())
+            acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv
+            m = m_new
+        l = torch.clamp(l, min=1e-30)
+        outs.append((acc / l.permute(0, 3, 1, 2)[..., None]).to(q.dtype))
+        lses.append(m + torch.log(l))                          # (B,KV,G,bq)
+    return torch.stack(outs, dim=1), torch.stack(lses, dim=3)
+
+
+def _flash_bwd(static, q, k, v, out, lse, dout):
+    """The reference's flash backward (``_flash_vjp_bwd``): scores are
+    recomputed block by block from the saved ``lse``, so no (bq x bk)
+    probabilities are kept from the forward.  Pass A takes dq q-block
+    major, pass B dk and dv kv-block major; everything accumulates in
+    float32 and is cast to the inputs' dtypes at the end."""
+    causal, window, logit_cap, q_offset, kv_len = static
+    B, nq, bq, KV, G, hd = q.shape
+    nk, bk = k.shape[1], k.shape[2]
+    scale = hd ** -0.5
+    dev = q.device
+    k32, v32, dout32 = k.float(), v.float(), dout.float()
+    # D_i = rowsum(dO * O): (B, KV, G, nq, bq)
+    delta = torch.einsum("bnqkgd,bnqkgd->bkgnq", dout32, out.float())
+
+    def ds_block(qi, ki):
+        """p and ds (B,KV,G,bq,bk) f32 of one (q-block, kv-block) pair."""
+        qblk = (q[:, qi] * scale).float()
+        qpos = q_offset + qi * bq + torch.arange(bq, device=dev)
+        kpos = ki * bk + torch.arange(bk, device=dev)
+        s, raw = _scores(qblk, k32[:, ki], logit_cap, qpos, kpos, causal,
+                         window, kv_len)
+        p = torch.exp(s - lse[:, :, :, qi, :, None])
+        dp = torch.einsum("bqkgd,bskd->bkgqs", dout32[:, qi], v32[:, ki])
+        ds = p * (dp - delta[:, :, :, qi, :, None])
+        if logit_cap is not None:
+            ds = ds * (1.0 - torch.tanh(raw / logit_cap).square())
+        return p, ds
+
+    # pass A: dq (q-block major, kv blocks inner)
+    dq = torch.zeros((B, nq, bq, KV, G, hd), dtype=torch.float32, device=dev)
+    for qi in range(nq):
+        for ki in range(nk):
+            _, ds = ds_block(qi, ki)
+            dq[:, qi] += torch.einsum("bkgqs,bskd->bqkgd", ds, k32[:, ki])
+    dq = dq * scale
+
+    # pass B: dk, dv (kv-block major, q blocks inner)
+    dk = torch.zeros((B, nk, bk, KV, hd), dtype=torch.float32, device=dev)
+    dv = torch.zeros_like(dk)
+    for ki in range(nk):
+        for qi in range(nq):
+            p, ds = ds_block(qi, ki)
+            dv[:, ki] += torch.einsum("bkgqs,bqkgd->bskd", p, dout32[:, qi])
+            dk[:, ki] += torch.einsum("bkgqs,bqkgd->bskd", ds,
+                                      q[:, qi].float() * scale)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Flash(torch.autograd.Function):
+    """Blockwise attention over padded, blocked q/k/v with the reference's
+    custom VJP: the forward saves ``lse`` and the backward recomputes the
+    scores (``_flash_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, static, q, k, v):
+        out, lse = _flash_fwd_res(static, q, k, v)
+        ctx.static = static
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        return (None, *_flash_bwd(ctx.static, *ctx.saved_tensors, dout))
+
+
 def flash_attention(
     q: torch.Tensor,             # (B, Tq, H, hd)
     k: torch.Tensor,             # (B, Tk, KV, hd)
@@ -138,7 +250,9 @@ def flash_attention(
     block_q: Optional[int] = None,
     block_k: Optional[int] = None,
 ) -> torch.Tensor:
-    """Online-softmax attention with O(block_q * block_k) live scores.
+    """Online-softmax attention with O(block_q * block_k) live scores,
+    differentiable through the reference's blockwise-recomputing backward
+    (``_Flash``), for training and prefill alike.
 
     Numerics follow the reference: q is scaled in its own dtype, scores and
     the softmax state are float32, and P is cast to v's dtype before the
@@ -169,38 +283,12 @@ def flash_attention(
     nq = qp.shape[1] // block_q
     nk = kp.shape[1] // block_k
     qp = qp.reshape(B, nq, block_q, KV, G, hd)
-    kp = kp.reshape(B, nk, block_k, KV, hd).float()
+    kp = kp.reshape(B, nk, block_k, KV, hd)
     vp = vp.reshape(B, nk, block_k, KV, hd)
     kv_len = Tk if kv_valid_len is None else kv_valid_len
-    scale = hd ** -0.5
-    dev = q.device
-    outs = []
-    for qi in range(nq):
-        qblk = (qp[:, qi] * scale).float()                     # (B,bq,KV,G,hd)
-        qpos = q_offset + qi * block_q + torch.arange(block_q, device=dev)
-        m = torch.full((B, KV, G, block_q), NEG_INF, dtype=torch.float32,
-                       device=dev)
-        l = torch.zeros((B, KV, G, block_q), dtype=torch.float32, device=dev)
-        acc = torch.zeros((B, block_q, KV, G, hd), dtype=torch.float32,
-                          device=dev)
-        for ki in range(nk):
-            kpos = ki * block_k + torch.arange(block_k, device=dev)
-            s = softcap(torch.einsum("bqkgd,bskd->bkgqs", qblk, kp[:, ki]),
-                        logit_cap)
-            mask = _mask_for(qpos, kpos, causal, window, kv_len)
-            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            pv = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(),
-                              vp[:, ki].float())
-            acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv
-            m = m_new
-        l = torch.clamp(l, min=1e-30)
-        outs.append((acc / l.permute(0, 3, 1, 2)[..., None]).to(q.dtype))
-    out = torch.stack(outs, dim=1).reshape(B, nq * block_q, H, hd)
-    return out[:, :Tq]
+    static = (causal, window, logit_cap, q_offset, kv_len)
+    out = _Flash.apply(static, qp, kp, vp)             # (B,nq,bq,KV,G,hd)
+    return out.reshape(B, nq * block_q, H, hd)[:, :Tq]
 
 
 # ---------------------------------------------------------------------------
@@ -292,14 +380,17 @@ def attn_block_apply(
     positions: Optional[torch.Tensor] = None,   # (T,) absolute positions
     cache: Optional[dict] = None,       # {'k','v'}: (B, KV, S, hd) — decode only
     cache_pos: Optional[torch.Tensor] = None,   # 0-d int tensor
-    mode: str = "prefill",              # prefill | decode
+    mode: str = "prefill",              # train | prefill | decode
     ring: bool = False,                 # windowed ring-buffer cache (decode)
 ):
-    """Returns (y, new_kv): new_kv is (k, v) for prefill and None for decode.
+    """Returns (y, new_kv): new_kv is (k, v) for prefill and None for train
+    and decode.
 
-    Prefill with ``causal=False`` is the encoder's bidirectional pass over
-    the whole sequence (the reference's ``mode="train"`` there); on the
-    kernel path it takes the flash kernel as the causal prefill does.
+    Train runs the plain blockwise attention, whatever ``cfg.kernel_impl``
+    says: the kernels have no backward.  Prefill with ``causal=False`` is
+    the encoder's bidirectional pass over the whole sequence (the
+    reference's ``mode="train"`` there); on the kernel path it takes the
+    flash kernel as the causal prefill does.
 
     Decode writes the new token's K/V into ``cache`` IN PLACE, at slot
     ``cache_pos`` (``cache_pos % capacity`` for a ring), before attending.
@@ -350,7 +441,7 @@ def attn_block_apply(
     else:
         o = flash_attention(q, k, v, causal=causal, window=window,
                             logit_cap=cfg.attn_logit_softcap)
-        new_kv = {"k": k, "v": v}
+        new_kv = {"k": k, "v": v} if mode == "prefill" else None
 
     y = _proj_out(o, p["wo"])
     if cfg.post_block_norm:
@@ -359,7 +450,8 @@ def attn_block_apply(
 
 
 def cross_attn_apply(p: dict, x: torch.Tensor, enc_kv: dict, cfg, *,
-                     enc_last: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     enc_last: Optional[torch.Tensor] = None,
+                     mode: str = "prefill") -> torch.Tensor:
     """Cross-attention over precomputed encoder K/V (no positions, no mask).
     enc_kv: {'k','v'}: (B, S_enc, KV, hd).
 
@@ -369,15 +461,16 @@ def cross_attn_apply(p: dict, x: torch.Tensor, enc_kv: dict, cfg, *,
     copy, at position ``S_enc - 1``, where every key is valid.
     ``enc_last`` holds that position as a (1,) int32 tensor on the device,
     made once per step by the caller (a CUDA-graph capture takes no copy
-    from the host); None makes it here.  The plain path runs the blockwise
-    ``flash_attention``, as the reference does for both."""
+    from the host); None makes it here.  The plain path, and
+    ``mode="train"`` on either path, runs the blockwise
+    ``flash_attention``, as the reference does for all three."""
     h = rmsnorm(x, p["cross_norm"], cfg.norm_eps)
     q = _proj_in(h, p["wq"])
     if cfg.attention_bias:
         q = q + p["bq"]
     k, v = enc_kv["k"], enc_kv["v"]
     cap = cfg.attn_logit_softcap
-    if cfg.kernel_impl != "pallas":
+    if cfg.kernel_impl != "pallas" or mode == "train":
         o = flash_attention(q, k, v, causal=False, logit_cap=cap)
     elif x.shape[1] == 1:
         from repro_torch.kernels.decode_attention.ops import \

@@ -144,7 +144,9 @@ def mamba_block_apply(p: dict, x: torch.Tensor, cfg, *,
     """Residual Mamba2 block.
 
     state: {'ssm': (B,H,P,N) f32, 'conv': (B, W-1, conv_dim)}, or None for
-    a zero state.  Returns (y, new_state).  A prefill with
+    a zero state.  Returns (y, new_state); new_state is None for
+    ``mode="train"``, which runs ``ssd_chunked`` from the zero state, as
+    the reference's does, never the kernel.  A prefill with
     ``kernel_impl="pallas"`` and ``state=None`` runs the SSD-scan kernel at
     the chunk ``ssd_chunked`` would use; a prefill from a handed state, or
     with ``kernel_impl="xla"``, runs ``ssd_chunked``.  (The reference also
@@ -182,6 +184,8 @@ def mamba_block_apply(p: dict, x: torch.Tensor, cfg, *,
     y = y.reshape(B, T, d_in)
     y = rmsnorm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
     out = y @ p["out_proj"]
+    if mode == "train":
+        return x + out, None
     return x + out, {"ssm": new_ssm, "conv": new_conv}
 
 

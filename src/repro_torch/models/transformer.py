@@ -9,18 +9,24 @@ FFN is an MLP, or with ``cfg.num_experts`` a mixture of experts,
 stacked on a leading layer axis (Zamba2's Mamba stack on two:
 super-block, then block; its shared block unstacked); a Python loop over
 that axis takes the place of ``lax.scan``.
-Two modes:
+Three modes:
 
+  train   — full-sequence forward, chunked cross-entropy loss
   prefill — full-sequence forward, returns last-position logits + cache
   decode  — one token against the cache (the serving hot path)
 
-Both write the cache in place.  The MoE layers' load-balance loss is
-discarded, as the reference's prefill and decode discard it.
+Prefill and decode write the cache in place and discard the MoE layers'
+load-balance loss, as the reference's do; train adds it to the loss.
+Train never takes a kernel: the attention's backward is the reference's
+blockwise recomputation (``layers._Flash``), the Mamba blocks run
+``ssd_chunked``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, MAMBA, SWA, torch_dtype
 from repro_torch.models import layers as L
@@ -85,19 +91,33 @@ def layer_params(gp: dict, i: int) -> dict:
             for k, v in gp.items()}
 
 
+def unstack(gp: dict) -> list:
+    """Every layer of a stacked group, each leaf split on its layer axis by
+    ``torch.unbind``: the backward stacks the layers' gradients into the
+    leaf once, where indexing each layer (``layer_params``) would add a
+    full-size gradient per layer."""
+    parts = {k: unstack(v) if isinstance(v, dict) else v.unbind(0)
+             for k, v in gp.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
 # ---------------------------------------------------------------------------
 # Layer application
 # ---------------------------------------------------------------------------
 def dense_layer_apply(lp, x, cfg, *, window, mode, kv=None, cache_pos=None,
                       positions=None, ring=False):
+    """Returns (x, new_kv, aux): aux is the MoE load-balance loss, 0.0 (a
+    float, so no kernel is launched for it) after an MLP."""
     x, new_kv = L.attn_block_apply(lp["attn"], x, cfg, window=window,
                                    mode=mode, cache=kv, cache_pos=cache_pos,
                                    positions=positions, ring=ring)
     if "moe" in lp:
-        x, _ = MOE.moe_block_apply(lp["moe"], x, cfg)
+        x, aux = MOE.moe_block_apply(lp["moe"], x, cfg)
     else:
         x = L.mlp_apply(lp["mlp"], x, cfg)
-    return x, new_kv
+        aux = 0.0
+    return x, new_kv, aux
 
 
 def _window(cfg, kind):
@@ -144,6 +164,52 @@ def init_cache(cfg, batch: int, capacity: int, windowed: bool = False,
 # ---------------------------------------------------------------------------
 # Group execution
 # ---------------------------------------------------------------------------
+def run_group_train(gp, x, cfg, kind, *, positions, remat=False):
+    """Full-sequence forward of one group; returns (x, the group's MoE aux
+    loss).  ``remat`` wraps each layer body (a Zamba2 super-block: its
+    Mamba stack and the shared block) in a non-reentrant
+    ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint(body)``:
+    only the body's input is kept, its activations are recomputed in the
+    backward."""
+    _check_kind(kind)
+    window = cfg.sliding_window
+    if kind == "local_global":
+        def body(y, lp):
+            y, _, a1 = dense_layer_apply(lp["local"], y, cfg, window=window,
+                                         mode="train", positions=positions)
+            y, _, a2 = dense_layer_apply(lp["global"], y, cfg, window=None,
+                                         mode="train", positions=positions)
+            return y, a1 + a2
+        layers = unstack(gp)
+    elif kind == MAMBA:
+        def body(y, lp):
+            return M.mamba_block_apply(lp, y, cfg, mode="train")[0], 0.0
+        layers = unstack(gp)
+    elif kind == "hybrid_super":
+        def body(y, mp_stack):
+            for mp in unstack(mp_stack):
+                y, _ = M.mamba_block_apply(mp, y, cfg, mode="train")
+            y, _, _ = dense_layer_apply(gp["shared"], y, cfg, window=window,
+                                        mode="train", positions=positions)
+            return y, 0.0
+        layers = unstack(gp["mamba"])
+    else:
+        def body(y, lp):
+            y, _, aux = dense_layer_apply(lp, y, cfg,
+                                          window=_window(cfg, kind),
+                                          mode="train", positions=positions)
+            return y, aux
+        layers = unstack(gp)
+    aux_total = 0.0
+    for lp in layers:
+        if remat:
+            x, aux = checkpoint(body, x, lp, use_reentrant=False)
+        else:
+            x, aux = body(x, lp)
+        aux_total = aux_total + aux
+    return x, aux_total
+
+
 def _put(buf: dict, i: int, kv: dict, cache_pos: int) -> None:
     """Write layer i's prefill K/V (B, T, KV, hd) at [cache_pos, cache_pos+T)."""
     T = kv["k"].shape[1]
@@ -174,13 +240,14 @@ def run_group_prefill(gp, x, cfg, kind, cache, *, positions, cache_pos=0):
     _check_kind(kind)
     if kind == "local_global":
         for i in range(gp["local"]["attn"]["wq"].shape[0]):
-            x, kv_l = dense_layer_apply(layer_params(gp["local"], i), x, cfg,
-                                        window=cfg.sliding_window,
-                                        mode="prefill", positions=positions)
+            x, kv_l, _ = dense_layer_apply(layer_params(gp["local"], i), x,
+                                           cfg, window=cfg.sliding_window,
+                                           mode="prefill",
+                                           positions=positions)
             _put(cache["local"], i, kv_l, cache_pos)
-            x, kv_g = dense_layer_apply(layer_params(gp["global"], i), x, cfg,
-                                        window=None, mode="prefill",
-                                        positions=positions)
+            x, kv_g, _ = dense_layer_apply(layer_params(gp["global"], i), x,
+                                           cfg, window=None, mode="prefill",
+                                           positions=positions)
             _put(cache["global"], i, kv_g, cache_pos)
         return x, cache
     if kind == MAMBA:
@@ -195,13 +262,13 @@ def run_group_prefill(gp, x, cfg, kind, cache, *, positions, cache_pos=0):
             for j in range(inner):
                 x = _mamba_layer(layer_params(stack, j), x, cfg,
                                  cache["mamba"], (i, j), "prefill", fresh)
-            x, kv = dense_layer_apply(gp["shared"], x, cfg,
+            x, kv, _ = dense_layer_apply(gp["shared"], x, cfg,
                                       window=cfg.sliding_window,
                                       mode="prefill", positions=positions)
             _put(cache, i, kv, cache_pos)
         return x, cache
     for i in range(gp["attn"]["wq"].shape[0]):
-        x, kv = dense_layer_apply(layer_params(gp, i), x, cfg,
+        x, kv, _ = dense_layer_apply(layer_params(gp, i), x, cfg,
                                   window=_window(cfg, kind), mode="prefill",
                                   positions=positions)
         _put(cache, i, kv, cache_pos)
@@ -221,12 +288,12 @@ def run_group_decode(gp, x, cfg, kind, cache, *, pos, windowed=False):
     positions = pos.reshape(1)
     if kind == "local_global":
         for i in range(gp["local"]["attn"]["wq"].shape[0]):
-            x, _ = dense_layer_apply(layer_params(gp["local"], i), x, cfg,
+            x, _, _ = dense_layer_apply(layer_params(gp["local"], i), x, cfg,
                                      window=cfg.sliding_window, mode="decode",
                                      kv=_layer_cache(cache["local"], i),
                                      cache_pos=pos, positions=positions,
                                      ring=windowed)
-            x, _ = dense_layer_apply(layer_params(gp["global"], i), x, cfg,
+            x, _, _ = dense_layer_apply(layer_params(gp["global"], i), x, cfg,
                                      window=None, mode="decode",
                                      kv=_layer_cache(cache["global"], i),
                                      cache_pos=pos, positions=positions)
@@ -243,14 +310,14 @@ def run_group_decode(gp, x, cfg, kind, cache, *, pos, windowed=False):
             for j in range(inner):
                 x = _mamba_layer(layer_params(stack, j), x, cfg,
                                  cache["mamba"], (i, j), "decode")
-            x, _ = dense_layer_apply(gp["shared"], x, cfg,
+            x, _, _ = dense_layer_apply(gp["shared"], x, cfg,
                                      window=cfg.sliding_window, mode="decode",
                                      kv=_layer_cache(cache, i), cache_pos=pos,
                                      positions=positions, ring=windowed)
         return x, cache
     ring = windowed and kind == SWA
     for i in range(gp["attn"]["wq"].shape[0]):
-        x, _ = dense_layer_apply(layer_params(gp, i), x, cfg,
+        x, _, _ = dense_layer_apply(layer_params(gp, i), x, cfg,
                                  window=_window(cfg, kind), mode="decode",
                                  kv=_layer_cache(cache, i), cache_pos=pos,
                                  positions=positions, ring=ring)
@@ -287,9 +354,74 @@ def logits_last(params, h_last, cfg):
     return L.softcap(out, cfg.final_logit_softcap)
 
 
+def next_token_targets(tokens):
+    """(labels, mask) of next-token prediction: tokens rolled left by one,
+    the last position masked out."""
+    mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
+    mask[:, -1] = 0.0
+    return torch.roll(tokens, -1, dims=1), mask
+
+
+def chunked_ce_loss(params, h, labels, mask, cfg, chunk: int = 512):
+    """Cross-entropy over (B, T) without materialising (B, T, V) logits: one
+    non-reentrant ``torch.utils.checkpoint`` per ``chunk`` positions, so a
+    chunk's float32 logits are recomputed in the backward, as the
+    reference's ``jax.checkpoint`` does.  The head product is float32 over
+    the widened operands (the reference's bf16 product with float32
+    output, exact products summed in float32)."""
+    B, T, d = h.shape
+    w = head_matrix(params, cfg)
+    chunk = min(chunk, T)
+    pad = (-T) % chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+
+    def per_chunk(hh, ll, mm, w):
+        logits = L.softcap(hh.float() @ w.float(), cfg.final_logit_softcap)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, ll[..., None].long())[..., 0]
+        return ((lse - gold) * mm).sum()
+
+    total = sum(checkpoint(per_chunk, h[:, c:c + chunk],
+                           labels[:, c:c + chunk], mask[:, c:c + chunk], w,
+                           use_reentrant=False)
+                for c in range(0, T + pad, chunk))
+    return total / mask.sum().clamp_min(1.0)
+
+
 # ---------------------------------------------------------------------------
 # Public entry points
 # ---------------------------------------------------------------------------
+def forward_full(params, x, cfg, *, positions, remat=False):
+    """Train-mode trunk: groups -> final norm.  Returns (h, the MoE aux
+    loss summed over layers, a float32 scalar)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for gp, (kind, _) in zip(params["groups"], cfg.layer_groups):
+        x, aux = run_group_train(gp, x, cfg, kind, positions=positions,
+                                 remat=remat)
+        aux_total = aux_total + aux
+    return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux_total
+
+
+def train_loss(params, batch, cfg, *, remat=True):
+    """batch: {'tokens': (B, T) int, optional 'patch_embeds': (B, P, d)}.
+    Next-token cross-entropy over the text positions (the last one
+    masked), plus ``router_aux_loss_coef`` x the MoE aux loss.  Returns
+    (loss, {'ce', 'aux'})."""
+    tokens = batch["tokens"]
+    x = embed_tokens(params, tokens, cfg,
+                     patch_embeds=batch.get("patch_embeds"))
+    T = x.shape[1]
+    positions = torch.arange(T, device=x.device)
+    h, aux = forward_full(params, x, cfg, positions=positions, remat=remat)
+    h_text = h[:, T - tokens.shape[1]:]
+    ce = chunked_ce_loss(params, h_text, *next_token_targets(tokens), cfg)
+    loss = ce + cfg.router_aux_loss_coef * aux
+    return loss, {"ce": ce, "aux": aux}
+
+
 def prefill(params, batch, cfg, capacity: int):
     """Returns (last_logits (B,V) f32, cache) with cache capacity ``capacity``.
     batch: {'tokens': (B, T) int, optional 'patch_embeds': (B, P, d)}; the

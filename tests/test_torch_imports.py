@@ -51,7 +51,10 @@ def test_port_imports_with_jax_and_reference_blocked():
             "repro_torch.serving.disagg", "repro_torch.serving.sim_state",
             "repro_torch.serving.replay", "repro_torch.serving.cluster",
             "repro_torch.perf.cost_model", "repro_torch.perf.op_analysis",
-            "repro_torch.launch.report"]
+            "repro_torch.launch.report", "repro_torch.training.adamw",
+            "repro_torch.training.data", "repro_torch.training.checkpoint",
+            "repro_torch.training.loop", "repro_torch.launch.train",
+            "repro_torch.examples.train_100m"]
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[m] = None\n"
