@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Ten phases, any failure fatal, all in a temporary autotune store, so a
+Eleven phases, any failure fatal, all in a temporary autotune store, so a
 stale ``.profile_store/`` in the working directory changes nothing:
   1. toolchain: torch / CUDA / nvcc versions, the card, TF32 off;
   2. build the four CUDA kernels from src/repro_torch/kernels/csrc with
@@ -99,7 +99,21 @@ stale ``.profile_store/`` in the working directory changes nothing:
      traced (busy, idle share, top kernels).  Every model runs with
      ``kernel_impl="pallas"`` and the four launch counts stay 0: the
      train path reaches no kernel (none has a backward); a JSON line;
-  9. autotune: ``serve --autotune``'s tuning of the serving shape classes
+  9. dist (``phase_dist``): the sharded steps (``launch/steps.py``) on a
+     process group of their own (NCCL, world size 1, a FileStore in a
+     temporary directory) over a (1, 1) mesh, SmolLM-360M at full width,
+     bf16, parameters laid out by the reference's ``param_specs(...,
+     "infer")``: ``make_prefill_step`` at 8 x 512 and 32 greedy
+     ``make_decode_step`` steps with the sharded cache append, tokens
+     equal to ``api.generate``'s, logits within the model phase's bf16
+     bound (bit for bit or not printed), K1 32 per prefill and K2 32 per
+     step on the local shards (``launches_by_path["dist"]``), no
+     collective over a step (``CommDebugMode``); ``make_train_step`` at 8 x
+     256 (4 microbatches) in float32 at 2 layers against the composed
+     microbatch step at 1e-4, then 5 bf16 steps at full width timed (2
+     also through the composed step); eager host-clock ms of the sharded
+     prefill and step beside the unsharded ones; a JSON line;
+  10. autotune: ``serve --autotune``'s tuning of the serving shape classes
      (SmolLM-360M prefill, decode and paged decode; Mamba2-1.3B's SSD
      scan), every candidate timed through its kernel on the device alone
      (calls captured in a CUDA graph): the flash kernel at its four wgmma
@@ -109,7 +123,7 @@ stale ``.profile_store/`` in the working directory changes nothing:
      16-byte rule of the tuned flash class takes the CUDA-core body at its
      own tile; then a short SmolLM serving run on the tuned cache with
      zero misses and zero stale hits after warm-up;
-  10. fleet (``phase_fleet``, on the host): the paper's 30-job Table-4
+  11. fleet (``phase_fleet``, on the host): the paper's 30-job Table-4
      fleet as ``serve --cluster`` prices it (``run_paper_cluster`` in
      ``auto`` mode, 12 simulated Tesla P40s, 90 s, seed 0), its aggregate
      printed, run again through ``VectorClusterEngine`` and held equal;
@@ -124,7 +138,8 @@ model before it is freed, and print the card's free memory before its
 init (phase 7 prints it before Gemma-2-2B's); running out of memory fails
 the script.  Prints the kernels' JSON line (each kernel's launches on the
 first served path that reaches it, and by path in ``launches_by_path``,
-the token path's under ``tokens``), the card's name and power limit, and
+the token path's under ``tokens``, the sharded steps' under ``dist``),
+the card's name and power limit, and
 last the device JSON line.  Exits non-zero without a CUDA device.
 """
 
@@ -142,8 +157,10 @@ import tempfile
 import time
 from pathlib import Path
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.autograd import DeviceType
+from torch.distributed.tensor.debug import CommDebugMode
 from torch.profiler import ProfilerActivity, profile
 
 if not torch.cuda.is_available():
@@ -170,7 +187,10 @@ from repro_torch.kernels.flash_attention import \
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan as k4  # noqa: E402
+from repro_torch.distributed import sharding as shd  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.serve import (decode_executor_for,  # noqa: E402
                                       make_controller, real_executor_for)
 from repro_torch.models import api, layers, moe, transformer  # noqa: E402
@@ -306,6 +326,9 @@ SLOT_LADDER = (1, 2, 4, 8, 12, 16)
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = (
     "smollm_360m", 8, 256, 30, 3e-4)
 TRAIN_CUT = 2
+# the dist path: bf16 train steps timed through the sharded train step,
+# and the first of them timed again through the composed unsharded step
+DIST_TRAIN_STEPS, DIST_COMPOSED_STEPS = 5, 2
 TRAIN_TINY_SHAPE = InputShape("smoke", 64, 2, "train")
 TRAIN_ATTN_CASES = (
     ("smollm", (8, 256, 15, 5, 64), dict(causal=True)),
@@ -2173,6 +2196,235 @@ def phase_train() -> dict:
     return out["launches"]
 
 
+# ---------------------------------------------------------------------------
+def _composed_train_step(params, opt, tokens, cfg, nm: int):
+    """The sharded train step's arithmetic composed by hand on plain
+    tensors: ``loop.loss_and_grads`` over ``nm`` microbatches (the
+    reference's grouping: consecutive rows), each gradient cast to float32
+    and divided by ``nm``, summed, then ``adamw.update``."""
+    grads, loss = None, 0.0
+    for mb in tokens.chunk(nm):
+        mb_loss, _, g = loss_and_grads(params, {"tokens": mb}, cfg)
+        g = adamw.tree_map(lambda t: t.float() / nm, g)
+        grads = g if grads is None else adamw.tree_map(torch.add, grads, g)
+        loss = loss + mb_loss / nm
+    new, opt, gnorm = adamw.update(grads, opt, params, lr=TRAIN_LR)
+    return new, opt, loss, gnorm
+
+
+def _full(tree):
+    return adamw.tree_map(lambda t: t.full_tensor(), tree)
+
+
+def _dist_serve(minfo, cfg) -> dict:
+    """The sharded prefill and ``STEPS`` greedy sharded decode steps
+    (``sharded_append``) against ``api.generate`` and the unsharded
+    prefill / step on the same parameters; the kernels' launches over the
+    sharded run; the collectives of its first step."""
+    shape = InputShape("dist", PROMPT, BATCH, "prefill")
+    cap = PROMPT + STEPS
+    pfn, _, p_in, _ = steps.make_prefill_step(cfg, minfo, shape, capacity=cap)
+    dfn, _, d_in, _ = steps.make_decode_step(
+        cfg, minfo, InputShape("dist", cap, BATCH, "decode"))
+    params = api.init_params(cfg, seed=0)
+    batch = api.make_batch(cfg, shape, seed=1)
+    P = shd.distribute_tree(params, p_in[0], minfo)
+    Bt = shd.distribute_tree(batch, p_in[1], minfo)
+    pos0 = torch.full((), PROMPT, dtype=torch.int32, device=DEV)
+
+    def sharded():
+        logits, cache = pfn(P, Bt)
+        first = logits.full_tensor()
+        tok = logits.argmax(-1).to(torch.int32)
+        pos = shd.distribute(pos0, d_in[3], minfo)
+        toks, step_logits, comm = [tok.full_tensor()], None, None
+        for i in range(STEPS):
+            with CommDebugMode() if i == 0 else contextlib.nullcontext() \
+                    as mode:
+                logits, cache = dfn(P, cache, tok, pos)
+            if i == 0:
+                comm, step_logits = mode, logits.full_tensor()
+            tok = logits.argmax(-1).to(torch.int32)
+            toks.append(tok.full_tensor())
+            pos = pos + 1
+        return first, step_logits, torch.stack(toks, dim=1), comm
+
+    _reset_launches()
+    first, step1, toks, comm = sharded()
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in kernels.launch_counts().items()
+                if "/" not in n}
+    want_toks = api.generate(params, batch, cfg, STEPS)
+    want_first, cache = api.prefill(params, batch, cfg, capacity=cap)
+    tok0 = want_first.argmax(-1).to(torch.int32)
+    want_step1, _ = api.decode_step(params, cache, tok0, pos0, cfg)
+    # the plain path's own rounding floor, as the model phase measures it
+    plain = cfg.replace(kernel_impl="xla")
+    lx, _ = api.prefill(params, batch, plain, capacity=cap)
+    saved, layers.DEFAULT_BLOCK_K = layers.DEFAULT_BLOCK_K, 64
+    try:
+        l64, _ = api.prefill(params, batch, plain, capacity=cap)
+    finally:
+        layers.DEFAULT_BLOCK_K = saved
+    floor = _maxerr(l64, lx)
+    atol = {"prefill": max(3e-2, 2 * floor), "decode": max(5e-2, 2 * floor)}
+    errs = {"prefill": _maxerr(first, want_first),
+            "decode": _maxerr(step1, want_step1)}
+    exact = {"prefill": torch.equal(first, want_first),
+             "decode": torch.equal(step1, want_step1),
+             "tokens": torch.equal(toks, want_toks)}
+    n_coll = comm.get_total_counts()
+    assert toks.shape == want_toks.shape and exact["tokens"], \
+        ("sharded tokens differ from api.generate's",
+         (toks != want_toks).sum().item())
+    for k in ("prefill", "decode"):
+        assert errs[k] <= atol[k], (k, errs[k], atol[k])
+    assert n_coll == 0, ("collectives in a sharded decode step",
+                         comm.get_comm_counts())
+    n_attn = cfg.num_layers
+    assert launches["flash"] == n_attn and \
+        launches["decode"] == n_attn * STEPS, launches
+
+    # eager host-clock ms, sharded beside unsharded
+    c_sh = pfn(P, Bt)[1]
+    tok_sh = shd.distribute(tok0, d_in[2], minfo)
+    pos_sh = shd.distribute(pos0, d_in[3], minfo)
+    ms = {"prefill_sharded": _wall_ms(lambda: pfn(P, Bt)),
+          "prefill": _wall_ms(
+              lambda: api.prefill(params, batch, cfg, capacity=cap)),
+          "step_sharded": _wall_ms(lambda: dfn(P, c_sh, tok_sh, pos_sh)),
+          "step": _wall_ms(
+              lambda: api.decode_step(params, cache, tok0, pos0, cfg))}
+    return {"launches": launches, "logits_err": errs, "bound": atol,
+            "floor": floor, "bit_for_bit": exact, "collectives": n_coll,
+            "ms": ms}
+
+
+def _dist_train(minfo) -> dict:
+    """``make_train_step`` at ``TRAIN_BATCH`` x ``TRAIN_SEQ`` with its
+    default microbatches: float32 at ``TRAIN_CUT`` layers against
+    ``_composed_train_step``; then bf16 at full width, timed beside the
+    composed step."""
+    shape = InputShape("dist", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tokens = torch.from_numpy(next(iter(TokenStream(DataConfig(
+        vocab_size=get_config(ARCH).vocab_size, seq_len=TRAIN_SEQ,
+        batch_size=TRAIN_BATCH, seed=0))))).to(DEV)
+    out = {}
+    for dtype, cut in (("float32", TRAIN_CUT), ("bfloat16", None)):
+        cfg = get_config(ARCH).replace(dtype=dtype, kernel_impl="pallas")
+        if cut:
+            cfg = cfg.replace(num_layers=cut)
+        nm = steps.default_microbatches(cfg, shape, minfo)
+        tfn, _, t_in, _ = steps.make_train_step(cfg, minfo, shape,
+                                                lr=TRAIN_LR)
+        params = api.init_params(cfg, seed=0)
+        opt = adamw.init(params)
+        args = [shd.distribute_tree(params, t_in[0], minfo),
+                shd.distribute_tree(opt, t_in[1], minfo),
+                shd.distribute_tree({"tokens": tokens}, t_in[2], minfo)]
+        if cut:
+            new, _, m = tfn(*args)
+            want, _, want_loss, _ = _composed_train_step(params, opt, tokens,
+                                                         cfg, nm)
+            err = max(_maxerr(a, b) for a, b in zip(
+                adamw.tree_leaves(_full(new)), adamw.tree_leaves(want)))
+            loss = m["loss"].full_tensor().item()
+            assert err <= 1e-4 and abs(loss - want_loss.item()) <= 1e-4, \
+                (err, loss, want_loss.item())
+            out["float32"] = {"layers": cut, "microbatches": nm,
+                              "param_err": err, "loss": loss,
+                              "loss_composed": want_loss.item()}
+            continue
+        ms, ms_plain, losses = [], [], []
+        for i in range(DIST_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            args[0], args[1], m = tfn(*args)
+            losses.append(m["loss"].full_tensor().item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i >= DIST_COMPOSED_STEPS:
+                continue
+            t0 = time.perf_counter()
+            params, opt, loss, _ = _composed_train_step(params, opt, tokens,
+                                                        cfg, nm)
+            loss.item()
+            ms_plain.append((time.perf_counter() - t0) * 1e3)
+        assert all(math.isfinite(x) for x in losses), losses
+        out["bfloat16"] = {"microbatches": nm, "losses": losses,
+                           "step_ms": sorted(ms)[len(ms) // 2],
+                           "step_ms_composed": sorted(ms_plain)[
+                               len(ms_plain) // 2]}
+    return out
+
+
+def phase_dist() -> dict:
+    """Distribution (``launch/steps.py``, ``distributed/``) on the card: a
+    process group of its own (NCCL, world size 1, on a FileStore in a
+    temporary directory, destroyed at the end) and a (1, 1) ``(data,
+    model)`` mesh; parameters laid out by ``param_specs(..., "infer")``.
+      1. serving: SmolLM-360M at full width, bf16, weights from seed 0,
+         ``make_prefill_step`` at ``BATCH`` x ``PROMPT``, then
+         ``STEPS`` greedy ``make_decode_step`` steps with
+         ``sharded_append``: the tokens equal ``api.generate``'s; the
+         prefill's and the first step's logits within the model phase's
+         bf16 bound (the larger of the JAX bound and twice the plain
+         path's rounding floor), bit for bit or not said; K1 launched once
+         per layer in the prefill and K2 once per layer a step (counts set
+         to 0 just before, read just after: ``launches_by_path["dist"]``);
+         ``CommDebugMode`` counts no collective over the first step, its
+         cache append included; eager host-clock ms of the sharded prefill
+         and step beside the unsharded ones;
+      2. training: ``make_train_step`` at ``TRAIN_BATCH`` x ``TRAIN_SEQ``
+         with its default microbatches, float32 at ``TRAIN_CUT`` layers:
+         one step's new parameters within 1e-4 of ``loss_and_grads`` over
+         the same microbatches and ``adamw.update``
+         (``_composed_train_step``); bf16 at full width:
+         ``DIST_TRAIN_STEPS`` steps, each timed on the host clock (ended
+         by reading the loss), the first ``DIST_COMPOSED_STEPS`` also
+         through the composed step.
+    Prints a JSON line; returns the serving run's launch counts."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dist_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        f"{tmp.name}/store", 1), rank=0, world_size=1)
+    try:
+        minfo = mesh_lib.make_host_mesh(1, 1)
+        cfg = get_config(ARCH).replace(kernel_impl="pallas")
+        out = {"mesh": dict(minfo.axis_sizes),
+               "serve": _dist_serve(minfo, cfg),
+               "train": _dist_train(minfo)}
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+    s, t = out["serve"], out["train"]
+    print(f"[dist] {cfg.name} bf16 on a (1, 1) mesh (NCCL): sharded "
+          f"prefill {BATCH} x {PROMPT} + {STEPS} greedy sharded decode "
+          f"steps: tokens equal api.generate's; logits max |diff| prefill "
+          f"{s['logits_err']['prefill']:.3e} / first step "
+          f"{s['logits_err']['decode']:.3e} (bounds "
+          f"{s['bound']['prefill']:.3e} / {s['bound']['decode']:.3e}, plain "
+          f"floor {s['floor']:.3e}; bit for bit: prefill "
+          f"{s['bit_for_bit']['prefill']}, step {s['bit_for_bit']['decode']}"
+          f"); launches {s['launches']}; collectives in a step "
+          f"{s['collectives']}; eager ms: prefill "
+          f"{s['ms']['prefill_sharded']:.2f} sharded / "
+          f"{s['ms']['prefill']:.2f} unsharded, step "
+          f"{s['ms']['step_sharded']:.2f} / {s['ms']['step']:.2f}")
+    print(f"[dist] make_train_step {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"{t['float32']['microbatches']} microbatches: float32 at "
+          f"{TRAIN_CUT} layers, new params max |diff| "
+          f"{t['float32']['param_err']:.3e} against the composed step "
+          f"(bound 1e-4), loss {t['float32']['loss']:.6f} / "
+          f"{t['float32']['loss_composed']:.6f}; bf16 at full width, "
+          f"{DIST_TRAIN_STEPS} steps, losses "
+          f"{', '.join(f'{x:.4f}' for x in t['bfloat16']['losses'])}: step "
+          f"{t['bfloat16']['step_ms']:.1f} ms sharded / "
+          f"{t['bfloat16']['step_ms_composed']:.1f} ms composed (median)")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"dist": out}))
+    return s["launches"]
+
+
 def _tune_classes() -> list:
     """(kernel, dtype, dims) of the serving shape classes at batch 8:
     SmolLM-360M's flash prefill and split-K decode, the paged decode
@@ -2304,7 +2556,7 @@ def phase_autotune() -> int:
     return launches["paged"]
 
 
-# phase 10: the seven models this script serves, traced for the cost
+# phase 11: the seven models this script serves, traced for the cost
 # model's live features at full width
 FLEET_ARCHS = (ARCH, SSM_ARCH, HYBRID_ARCH, VLM_ARCH, ENCDEC_ARCH, MOE_ARCH,
                TOKEN_ARCH)
@@ -2318,7 +2570,7 @@ def _report_json(rep: dict) -> str:
 
 def phase_fleet() -> None:
     """The paper's fleet and the analysis layers, priced on the host as
-    the reference prices them (module docstring, phase 10)."""
+    the reference prices them (module docstring, phase 11)."""
     t = time.perf_counter()
     reps = {}
     for vectorized in (False, True):
@@ -2395,6 +2647,8 @@ def main() -> None:
     mark("tokens")
     by_path["train"] = phase_train()
     mark("train")
+    by_path["dist"] = phase_dist()
+    mark("dist")
     launches["paged"] = phase_autotune()
     mark("autotune")
     phase_fleet()

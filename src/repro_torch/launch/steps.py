@@ -1,0 +1,250 @@
+"""Sharded step functions (train / prefill / decode) used by the dry-run,
+the counterpart of ``repro.launch.steps``.
+
+Every builder returns ``(fn, arg_specs, in_shardings, out_shardings)``:
+``arg_specs`` are meta tensors (shapes and dtypes, no storage: the
+reference's ShapeDtypeStructs) and the shardings are trees of DTensor
+placements (the reference's NamedShardings), from the reference's spec
+rules (``distributed.sharding``).  ``fn`` is one rank's program, the
+same on every rank: it takes its arguments as DTensors laid out by
+``in_shardings`` (``sharding.distribute_tree``) and returns its results
+laid out by ``out_shardings``.  Its body runs under DTensor's
+``implicit_replication``, so a plain tensor a model makes (positions,
+masks, a zero accumulator) counts as replicated on every rank.  The
+reference jits each function; here each runs eagerly, op by op.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch.distributed.tensor.experimental import implicit_replication
+
+from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.distributed import cache_update, is_dtensor
+from repro_torch.distributed import sharding as shd
+from repro_torch.models import api
+from repro_torch.training import adamw
+from repro_torch.training.loop import loss_and_grads
+
+
+def default_microbatches(cfg: ModelConfig, shape: InputShape,
+                         minfo: shd.MeshInfo) -> int:
+    """Pick gradient-accumulation so each microbatch has ~<=2 seqs/device."""
+    dp = minfo.batch_size
+    per_dev = shape.global_batch / dp
+    # scale down further for very large models (activation pressure); hybrid
+    # archs carry both attention KV and d_in=2*d SSM streams per layer, so
+    # they also get 1 seq/device
+    target = 1 if (cfg.param_count() >= 30e9
+                   or cfg.arch_type == "hybrid") else 2
+    micro = max(1, int(per_dev / target))
+    while shape.global_batch % (micro * dp) and micro > 1:
+        micro -= 1
+    return micro
+
+
+def _replicated(minfo: shd.MeshInfo) -> tuple:
+    return shd.to_placements((), minfo.mesh)
+
+
+def gathered(params, minfo: shd.MeshInfo):
+    """The params with their FSDP shards gathered: every placement on a
+    batch axis ('pod', 'data') made whole, the 'model' axis's TP kept.
+    A partitioner all-gathers an FSDP-sharded weight where it is used, so
+    each rank computes on its own batch rows; DTensor, left to itself,
+    may instead keep the weight sharded and gather the activations (a
+    weight-stationary product), which computes on the whole batch.  The
+    gradients of the gathered leaves, summed over the microbatches, are
+    reduced back onto the params' shards by the caller, as the
+    reference's step constrains its summed gradients.  All the params are
+    gathered at once, not layer by layer as the reference's compiled step
+    does, so a rank holds its TP part of every layer at a time."""
+    from torch.distributed.tensor import Replicate
+    names = minfo.mesh.mesh_dim_names
+
+    def gather(t):
+        want = tuple(Replicate() if names[i] in minfo.batch_axes else p
+                     for i, p in enumerate(t.placements))
+        return t if want == tuple(t.placements) else t.redistribute(
+            minfo.mesh, want)
+    return adamw.tree_map(gather, params)
+
+
+def _device(t) -> torch.device:
+    return t.to_local().device if is_dtensor(t) else t.device
+
+
+def microbatches(batch: dict, nm: int, minfo: shd.MeshInfo, bspec) -> list:
+    """``nm`` microbatches of ``batch``, the reference's: microbatch i is
+    the global rows ``[i*B/nm, (i+1)*B/nm)`` (its reshape to (nm, B/nm,
+    ...)), laid out over ``bspec``.  A sharded batch is gathered first
+    (token ids: a few bytes a position) and each microbatch taken from
+    it, each rank keeping its own slice."""
+    def split(t):
+        if t.shape[0] % nm:
+            raise ValueError(f"a batch of {t.shape[0]} does not split into "
+                             f"{nm} microbatches")
+        if not is_dtensor(t):
+            return list(t.chunk(nm))
+        pl = shd.to_placements((bspec,) + (None,) * (t.ndim - 1), minfo.mesh)
+        return [shd.distribute(part, pl, minfo)
+                for part in t.full_tensor().chunk(nm)]
+    cols = {k: split(v) for k, v in batch.items()}
+    return [{k: v[i] for k, v in cols.items()} for i in range(nm)]
+
+
+# ---------------------------------------------------------------------------
+# Train step (grad-accumulation microbatching + AdamW)
+# ---------------------------------------------------------------------------
+def make_train_step(cfg: ModelConfig, minfo: shd.MeshInfo, shape: InputShape,
+                    *, num_microbatches: Optional[int] = None,
+                    lr: float = 3e-4, remat: bool = True,
+                    param_mode: str = "train"):
+    """``fn(params, opt_state, batch) -> (params, opt_state, {'loss',
+    'grad_norm'})``: the gradients of ``nm`` microbatches summed in
+    float32, each divided by ``nm``, laid out as the params, then
+    ``adamw.update``."""
+    if num_microbatches is None:
+        num_microbatches = default_microbatches(cfg, shape, minfo)
+    nm = num_microbatches
+
+    abstract_params = api.param_specs(cfg)
+    p_specs = shd.param_specs(abstract_params, cfg, minfo, param_mode)
+    batch_abs = api.batch_specs(cfg, shape)
+    b_specs = shd.batch_input_specs(batch_abs, minfo)
+    bspec = shd.batch_spec_axes(minfo, shape.global_batch // nm)
+    p_sh = shd.to_shardings(p_specs, minfo)
+    rep = _replicated(minfo)
+
+    def train_step(params, opt_state, batch):
+        with implicit_replication(), torch.enable_grad():
+            grads, loss = None, 0.0
+            for mb in microbatches(batch, nm, minfo, bspec):
+                mb_loss, _, g = loss_and_grads(gathered(params, minfo), mb,
+                                               cfg, remat=remat, bspec=bspec)
+                g = adamw.tree_map(lambda t: t.float() / nm, g)
+                grads = g if grads is None else adamw.tree_map(
+                    torch.add, grads, g)
+                loss = loss + mb_loss / nm
+            # keep grads sharded like params
+            grads = shd.distribute_tree(grads, p_sh, minfo)
+            new_params, new_opt, gnorm = adamw.update(grads, opt_state,
+                                                      params, lr=lr)
+            metrics = {"loss": shd.distribute(loss, rep, minfo),
+                       "grad_norm": shd.distribute(gnorm, rep, minfo)}
+        return new_params, new_opt, metrics
+
+    opt_abs = adamw.init(abstract_params)
+    opt_sh = adamw.AdamWState(step=rep, mu=p_sh, nu=p_sh)
+    in_shardings = (p_sh, opt_sh, shd.to_shardings(b_specs, minfo))
+    out_shardings = (p_sh, opt_sh, {"loss": rep, "grad_norm": rep})
+    arg_specs = (abstract_params, opt_abs, batch_abs)
+    return train_step, arg_specs, in_shardings, out_shardings
+
+
+# ---------------------------------------------------------------------------
+# Prefill step
+# ---------------------------------------------------------------------------
+def prefill_seq_axis(cfg: ModelConfig, minfo: shd.MeshInfo,
+                     shape: InputShape) -> Optional[str]:
+    """Sequence-parallel attention: when neither KV-head TP nor q-TP
+    applies, shard the prefill's q blocks over 'model' instead of
+    replicating the attention compute."""
+    if (not cfg.is_encoder_decoder and cfg.num_heads
+            and not shd.attn_head_tp(cfg, minfo.model)
+            and cfg.num_heads % minfo.model != 0
+            and (shape.seq_len // 256) % minfo.model == 0):
+        return "model"
+    return None
+
+
+def make_prefill_step(cfg: ModelConfig, minfo: shd.MeshInfo,
+                      shape: InputShape, *, capacity: Optional[int] = None):
+    """``fn(params, batch) -> (last logits, cache)``: the cache made as
+    zeros laid out by the reference's cache specs, each rank allocating
+    its own shard, and filled in place."""
+    capacity = capacity or shape.seq_len
+    B = shape.global_batch
+    abstract_params = api.param_specs(cfg)
+    p_specs = shd.param_specs(abstract_params, cfg, minfo, "infer")
+    batch_abs = api.batch_specs(cfg, shape)
+    b_specs = shd.batch_input_specs(batch_abs, minfo)
+    cache_abs = api.init_cache(cfg, B, capacity, device="meta")
+    c_sh = shd.to_shardings(
+        shd.cache_specs_tree(cache_abs, cfg, minfo, B, capacity), minfo)
+    bspec = shd.batch_spec_axes(minfo, B)
+    logits_sh = shd.to_placements((bspec, None), minfo.mesh)
+    seq_axis = prefill_seq_axis(cfg, minfo, shape)
+
+    def prefill_step(params, batch):
+        with implicit_replication():
+            cache = shd.zeros(cache_abs, c_sh, minfo,
+                              _device(batch["tokens"]))
+            logits, cache = api.prefill(gathered(params, minfo), batch, cfg,
+                                        capacity,
+                                        bspec=bspec, seq_axis=seq_axis,
+                                        cache=cache)
+            return shd.distribute(logits, logits_sh, minfo), cache
+
+    in_shardings = (shd.to_shardings(p_specs, minfo),
+                    shd.to_shardings(b_specs, minfo))
+    return (prefill_step, (abstract_params, batch_abs), in_shardings,
+            (logits_sh, c_sh))
+
+
+# ---------------------------------------------------------------------------
+# Decode step (serve_step for decode shapes)
+# ---------------------------------------------------------------------------
+def make_decode_step(cfg: ModelConfig, minfo: shd.MeshInfo,
+                     shape: InputShape, *, windowed_cache: bool = False,
+                     param_mode: str = "infer", sharded_append: bool = True):
+    """``fn(params, cache, tokens, pos) -> (logits, cache)``, the cache
+    written in place.  windowed_cache / param_mode='tp' are the
+    reference's beyond-baseline variants: ring-buffer caches for
+    sliding-window layers, and TP-only inference params.
+    ``sharded_append``: the decode step leaves the cache unwritten and
+    returns the new tokens' deltas, which ``cache_update`` appends into
+    each rank's own shard (zero collectives)."""
+    B, S = shape.global_batch, shape.seq_len
+    abstract_params = api.param_specs(cfg)
+    p_specs = shd.param_specs(abstract_params, cfg, minfo, param_mode)
+    cache_abs = api.init_cache(cfg, B, S, windowed=windowed_cache,
+                               device="meta")
+    c_sh = shd.to_shardings(shd.cache_specs_tree(cache_abs, cfg, minfo, B, S),
+                            minfo)
+    tok_abs = torch.empty((B,), dtype=torch.int32, device="meta")
+    pos_abs = torch.empty((), dtype=torch.int32, device="meta")
+    bspec = shd.batch_spec_axes(minfo, B)
+    tok_sh = shd.to_placements((bspec,), minfo.mesh)
+    logits_sh = shd.to_placements((bspec, None), minfo.mesh)
+
+    def decode(params, cache, tokens, pos):
+        with implicit_replication():
+            params = gathered(params, minfo)
+            if not sharded_append:
+                logits, cache = api.decode_step(params, cache, tokens, pos,
+                                                cfg, windowed=windowed_cache,
+                                                bspec=bspec)
+            else:
+                logits, deltas = api.decode_step(params, cache, tokens, pos,
+                                                 cfg, windowed=windowed_cache,
+                                                 bspec=bspec,
+                                                 return_deltas=True)
+                cache_update.apply_cache_deltas(cache, deltas, pos)
+            return shd.distribute(logits, logits_sh, minfo), cache
+
+    in_shardings = (shd.to_shardings(p_specs, minfo), c_sh, tok_sh,
+                    _replicated(minfo))
+    arg_specs = (abstract_params, cache_abs, tok_abs, pos_abs)
+    return decode, arg_specs, in_shardings, (logits_sh, c_sh)
+
+
+def make_step(cfg: ModelConfig, minfo: shd.MeshInfo, shape: InputShape,
+              **kw):
+    if shape.kind == "train":
+        return make_train_step(cfg, minfo, shape, **kw)
+    if shape.kind == "prefill":
+        return make_prefill_step(cfg, minfo, shape, **kw)
+    return make_decode_step(cfg, minfo, shape, **kw)

@@ -8,6 +8,10 @@ SSM, hybrid and the vision stub: ``transformer``) and the encoder-decoder
   train_loss(params, batch, cfg, remat=True)        -> (loss, {'ce', 'aux'})
   prefill(params, batch, cfg, capacity)             -> (last_logits, cache)
   decode_step(params, cache, tokens, pos, cfg)      -> (logits, cache)
+
+Each also takes the reference's mesh arguments (``bspec``; ``seq_axis``
+for prefill, ``return_deltas`` for decode) and works on DTensors laid out
+on a ``DeviceMesh`` (``launch/steps.py``).
   init_cache(cfg, batch, capacity, device=None)     -> cache
   make_batch(cfg, shape, seed=0, device=None)       -> {'tokens': ..., ...}
   generate(params, batch, cfg, steps)               -> (B, steps + 1) tokens
@@ -59,22 +63,44 @@ def params_from_jax(tree, device=None):
     return torch.from_numpy(np.array(arr)).to(dev)
 
 
-def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True):
+def _given(**kw) -> dict:
+    """The keyword arguments given a value: a call without the mesh's
+    arguments reaches the model functions as it did before they had
+    them."""
+    return {k: v for k, v in kw.items() if v is not None and v is not False}
+
+
+def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True,
+               bspec=None):
     """Next-token loss of ``batch`` (the reference's ``train_loss``),
-    differentiable by ``torch.autograd``; takes no kernel."""
-    return _model(cfg).train_loss(params, batch, cfg, remat=remat)
+    differentiable by ``torch.autograd``; takes no kernel.  ``bspec``:
+    the mesh axes the activations' batch is constrained to."""
+    return _model(cfg).train_loss(params, batch, cfg, remat=remat,
+                                  **_given(bspec=bspec))
 
 
-def prefill(params, batch, cfg: ModelConfig, capacity: int):
-    return _model(cfg).prefill(params, batch, cfg, capacity)
+def prefill(params, batch, cfg: ModelConfig, capacity: int, bspec=None,
+            seq_axis=None, cache=None):
+    """``cache``: a zero cache to fill in place (a mesh's DTensors); the
+    encoder-decoder takes no ``seq_axis``, as the reference's."""
+    if cfg.is_encoder_decoder:
+        return encdec.prefill(params, batch, cfg, capacity,
+                              **_given(bspec=bspec, cache=cache))
+    return transformer.prefill(params, batch, cfg, capacity,
+                               **_given(bspec=bspec, seq_axis=seq_axis,
+                                        cache=cache))
 
 
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
-                windowed: bool = False):
+                windowed: bool = False, bspec=None,
+                return_deltas: bool = False):
+    """``return_deltas``: the cache is left unwritten and the second
+    result is the reference's deltas (``transformer.run_group_decode``)."""
+    kw = _given(bspec=bspec, return_deltas=return_deltas)
     if cfg.is_encoder_decoder:
-        return encdec.decode_step(params, cache, tokens, pos, cfg)
+        return encdec.decode_step(params, cache, tokens, pos, cfg, **kw)
     return transformer.decode_step(params, cache, tokens, pos, cfg,
-                                   windowed=windowed)
+                                   windowed=windowed, **kw)
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,

@@ -26,6 +26,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import torch_dtype
+from repro_torch.distributed import is_dtensor
+from repro_torch.distributed.cache_update import (deltas_like, write_slice,
+                                                  write_whole)
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
 from repro_torch.models.transformer import layer_params, unstack
@@ -52,32 +55,36 @@ def init_params(gen: torch.Generator, cfg, device) -> dict:
 
 
 def encode(params, audio_embeds: torch.Tensor, cfg, *,
-           mode: str = "prefill") -> torch.Tensor:
+           mode: str = "prefill", bspec=None) -> torch.Tensor:
     """audio_embeds: (B, S_enc, d), the stubbed frontend's output -> the
     encoder's states.  ``mode="train"`` takes the plain attention, never
     the kernel."""
-    x = audio_embeds.to(torch_dtype(cfg))
+    x = L.constrain_batch(audio_embeds.to(torch_dtype(cfg)), bspec)
     positions = torch.arange(x.shape[1], device=x.device)
     for lp in unstack(params["enc_layers"]):
-        x, _ = L.attn_block_apply(lp["attn"], x, cfg, causal=False,
+        x, _ = L.attn_block_apply(lp["attn"], L.constrain_batch(x, bspec), cfg,
+                                  causal=False,
                                   positions=positions, mode=mode)
         x = L.mlp_apply(lp["mlp"], x, cfg)
     return L.rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
 
 def _decoder_trunk(params, x, cfg, cache, *, mode, enc_out=None,
-                   positions=None, pos=None, remat=False):
+                   positions=None, pos=None, remat=False, bspec=None,
+                   return_deltas=False):
     """Runs the decoder layers, writing ``cache`` in place.
 
     prefill: self-attention K/V of the T prompt positions at [0, T), and
     each layer's cross-attention K/V of ``enc_out`` into ``ck``/``cv``.
     decode: one token at slot ``pos`` (0-d int tensor on the device);
-    cross-attention reads ``ck``/``cv``.
+    cross-attention reads ``ck``/``cv``; ``return_deltas`` leaves the
+    cache unwritten and returns (x, the reference's deltas).
     train: no cache; ``remat`` checkpoints each layer's body (see
     ``transformer.run_group_train``)."""
     n = cfg.num_layers
     if mode == "train":
         def body(y, lp):
+            y = L.constrain_batch(y, bspec)
             y, _ = L.attn_block_apply(lp["attn"], y, cfg, mode="train",
                                       positions=positions)
             enc_kv = L.encode_kv(lp["cross"], enc_out, cfg)
@@ -91,13 +98,20 @@ def _decoder_trunk(params, x, cfg, cache, *, mode, enc_out=None,
         T = x.shape[1]
         for i in range(n):
             lp = layer_params(params["dec_layers"], i)
-            x, kv = L.attn_block_apply(lp["attn"], x, cfg, mode="prefill",
+            x, kv = L.attn_block_apply(lp["attn"], L.constrain_batch(x, bspec),
+                                       cfg, mode="prefill",
                                        positions=positions)
-            cache["k"][i, :, :, :T] = kv["k"].transpose(1, 2)
-            cache["v"][i, :, :, :T] = kv["v"].transpose(1, 2)
             enc_kv = L.encode_kv(lp["cross"], enc_out, cfg)
-            cache["ck"][i] = enc_kv["k"]
-            cache["cv"][i] = enc_kv["v"]
+            if is_dtensor(cache["k"]):
+                for name in ("k", "v"):
+                    write_slice(cache[name][i], kv[name].transpose(1, 2), 2,
+                                0)
+                    write_whole(cache["c" + name][i], enc_kv[name])
+            else:
+                cache["k"][i, :, :, :T] = kv["k"].transpose(1, 2)
+                cache["v"][i, :, :, :T] = kv["v"].transpose(1, 2)
+                cache["ck"][i] = enc_kv["k"]
+                cache["cv"][i] = enc_kv["v"]
             x = L.cross_attn_apply(lp["cross"], x, enc_kv, cfg)
             x = L.mlp_apply(lp["mlp"], x, cfg)
         return x
@@ -105,16 +119,25 @@ def _decoder_trunk(params, x, cfg, cache, *, mode, enc_out=None,
     positions = pos.reshape(1)
     enc_last = torch.full((1,), cache["ck"].shape[2] - 1, dtype=torch.int32,
                           device=x.device)
+    kvs = []
     for i in range(n):
         lp = layer_params(params["dec_layers"], i)
-        x, _ = L.attn_block_apply(lp["attn"], x, cfg, mode="decode",
-                                  cache={"k": cache["k"][i],
-                                         "v": cache["v"][i]},
-                                  cache_pos=pos, positions=positions)
+        x, kv = L.attn_block_apply(lp["attn"], L.constrain_batch(x, bspec),
+                                   cfg, mode="decode",
+                                   cache={"k": cache["k"][i],
+                                          "v": cache["v"][i]},
+                                   cache_pos=pos, positions=positions,
+                                   write=not return_deltas)
+        kvs.append(kv)
         x = L.cross_attn_apply(lp["cross"], x,
                                {"k": cache["ck"][i], "v": cache["cv"][i]},
                                cfg, enc_last=enc_last)
         x = L.mlp_apply(lp["mlp"], x, cfg)
+    if return_deltas:
+        deltas = {name: torch.stack([kv[name] for kv in kvs])
+                  for name in ("k", "v")}
+        return x, deltas_like({**deltas, "ck": cache["ck"],
+                               "cv": cache["cv"]}, cache)
     return x
 
 
@@ -132,16 +155,17 @@ def init_cache(cfg, batch: int, capacity: int, device=None) -> dict:
             "cv": zeros(Ld, batch, Se, KV, hd)}
 
 
-def train_loss(params, batch, cfg, *, remat=True):
+def train_loss(params, batch, cfg, *, remat=True, bspec=None):
     """batch: {'tokens': (B, T) int, 'audio_embeds': (B, S_enc, d)}.
     Next-token cross-entropy of the decoder; aux is zero (no MoE).
     Returns (loss, {'ce', 'aux'})."""
     tokens = batch["tokens"]
-    enc_out = encode(params, batch["audio_embeds"], cfg, mode="train")
-    x = params["embed"][tokens].to(torch_dtype(cfg))
+    enc_out = encode(params, batch["audio_embeds"], cfg, mode="train",
+                     bspec=bspec)
+    x = L.constrain_batch(params["embed"][tokens].to(torch_dtype(cfg)), bspec)
     positions = torch.arange(tokens.shape[1], device=x.device)
     h = _decoder_trunk(params, x, cfg, None, mode="train", enc_out=enc_out,
-                       positions=positions, remat=remat)
+                       positions=positions, remat=remat, bspec=bspec)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     ce = transformer.chunked_ce_loss(
         params, h, *transformer.next_token_targets(tokens), cfg)
@@ -149,26 +173,35 @@ def train_loss(params, batch, cfg, *, remat=True):
                                              device=x.device)}
 
 
-def prefill(params, batch, cfg, capacity: int):
+def prefill(params, batch, cfg, capacity: int, bspec=None, cache=None):
     """batch: {'tokens': (B, T) int, 'audio_embeds': (B, S_enc, d)}.
     Returns (last_logits (B,V) f32, cache) with cache capacity
-    ``capacity``."""
+    ``capacity``; ``cache``, ``bspec`` as ``transformer.prefill``'s."""
     tokens = batch["tokens"]
-    enc_out = encode(params, batch["audio_embeds"], cfg)
-    x = params["embed"][tokens].to(torch_dtype(cfg))
+    enc_out = encode(params, batch["audio_embeds"], cfg, bspec=bspec)
+    x = L.constrain_batch(params["embed"][tokens].to(torch_dtype(cfg)), bspec)
     B, T = tokens.shape
     positions = torch.arange(T, device=x.device)
-    cache = init_cache(cfg, B, capacity, device=x.device)
+    if cache is None:
+        cache = init_cache(cfg, B, capacity, device=x.device)
     h = _decoder_trunk(params, x, cfg, cache, mode="prefill", enc_out=enc_out,
-                       positions=positions)
+                       positions=positions, bspec=bspec)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return transformer.logits_last(params, h[:, -1], cfg), cache
 
 
-def decode_step(params, cache, tokens, pos, cfg):
+def decode_step(params, cache, tokens, pos, cfg, bspec=None,
+                return_deltas: bool = False):
     """tokens: (B,) int new token ids; pos: 0-d int tensor slot index.
-    Returns (logits (B,V) f32, cache), the cache updated in place."""
-    x = params["embed"][tokens[:, None]].to(torch_dtype(cfg))
-    h = _decoder_trunk(params, x, cfg, cache, mode="decode", pos=pos)
+    Returns (logits (B,V) f32, cache), the cache updated in place; with
+    ``return_deltas`` the cache is unwritten and the second result is the
+    reference's deltas: {'k','v': (L, B, KV, 1, hd), 'ck','cv': the cache's
+    own}."""
+    x = L.constrain_batch(params["embed"][tokens[:, None]].to(
+        torch_dtype(cfg)), bspec)
+    h = _decoder_trunk(params, x, cfg, cache, mode="decode", pos=pos,
+                       return_deltas=return_deltas, bspec=bspec)
+    if return_deltas:
+        h, cache = h
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return transformer.logits_last(params, h[:, 0], cfg), cache

@@ -7,6 +7,12 @@ parameter dictionaries in the JAX package's layout.  Attention is blockwise
 PyTorch mirror of the flash kernel in ``repro_torch.kernels``; its
 backward is the reference's custom VJP (``_Flash``), so the train mode
 never reaches a kernel, which has no backward.
+
+Every function also runs on DTensors laid out on a ``DeviceMesh``
+(``launch/steps.py``): the reference's ``constrain_batch``, a kernel
+called on each rank's local shards (``on_shards``), and the few layouts
+DTensor cannot view as a partitioner can (``splittable``, ``evenly``,
+``_SafeView``) made explicit.  On plain tensors none of it runs.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import is_dtensor
 from repro_torch.perf import autotune
 
 NEG_INF = -2.0 ** 30  # large-negative that survives bf16 softmax math in f32
@@ -71,6 +78,119 @@ def init_mlp(gen, cfg, prefix, dt, device) -> dict:
     if cfg.post_block_norm:
         p["post_norm"] = torch.ones((*prefix, d), dtype=dt, device=device)
     return p
+
+
+# ---------------------------------------------------------------------------
+# Distributed tensors: the batch constraint, and the kernels on local shards
+# ---------------------------------------------------------------------------
+def constrain_batch(x: torch.Tensor, bspec) -> torch.Tensor:
+    """Lay a DTensor activation out with its leading (batch) axis over the
+    mesh axes ``bspec`` and every other axis whole, as the reference's
+    ``with_sharding_constraint`` to ``P(bspec, None, ...)``.  A plain
+    tensor, or ``bspec`` None, is returned as it is."""
+    if bspec is None or not is_dtensor(x):
+        return x
+    from repro_torch.distributed.sharding import to_placements
+    want = to_placements((bspec,) + (None,) * (x.ndim - 1), x.device_mesh)
+    return x if tuple(x.placements) == want else x.redistribute(
+        x.device_mesh, want)
+
+
+def keep_layout(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``y`` (a block's output on the residual stream) laid out as the
+    block's input ``like``: the stream keeps one layout through a layer,
+    as the reference's scan carries one, where DTensor would leave a
+    pending sum or a strided shard for the next view to trip on.  Plain
+    tensors are returned as they are."""
+    if not is_dtensor(y) or tuple(y.placements) == tuple(like.placements):
+        return y
+    return y.redistribute(like.device_mesh, like.placements)
+
+
+def settled(t):
+    """A DTensor with its pending (partial) reductions done."""
+    from torch.distributed.tensor import Replicate
+    want = tuple(Replicate() if p.is_partial() else p for p in t.placements)
+    return t if tuple(t.placements) == want else t.redistribute(
+        t.device_mesh, want)
+
+
+def _whole(ts: tuple, head_dims: tuple, skip: Optional[int] = None) -> bool:
+    """Do DTensors ``ts``' placements keep each rank's attention whole: on
+    every mesh dim of more than one rank (but ``skip``), all replicated,
+    all sharded on the batch (dim 0), or all on their head dims
+    (``head_dims``, one per operand, aligned as the reference's head TP
+    aligns Q and KV heads; None: an operand with no head dim)?"""
+    mesh = ts[0].device_mesh
+    for i in range(mesh.ndim):
+        if mesh.size(i) == 1 or i == skip:
+            continue
+        pls = [t.placements[i] for t in ts]
+        if not (all(p.is_replicate() for p in pls)
+                or all(p.is_shard(0) for p in pls)
+                or all(h is not None and p.is_shard(h)
+                       for p, h in zip(pls, head_dims))):
+            return False
+    return True
+
+
+def local_shards(what: str, tensors: tuple, head_dims: tuple,
+                 skip: Optional[int] = None):
+    """The local shards of DTensor attention operands, for a kernel that
+    runs on each rank's own part: allowed only where the placements keep
+    each rank's attention whole (``_whole``; pending sums are done
+    first).  Anything else (a sequence-sharded cache, Q heads sharded over
+    replicated K/V) raises ``NotImplementedError`` naming the placements:
+    a kernel call under a mesh never quietly takes the plain version.
+    Returns (the local tensors, the first operand's mesh and
+    placements)."""
+    ts = tuple(settled(t) for t in tensors)
+    if not _whole(ts, head_dims, skip):
+        raise NotImplementedError(
+            f"{what} on local shards needs each rank's attention whole "
+            f"(batch or aligned head shards); placements "
+            f"{[tuple(t.placements) for t in ts]} over mesh dims "
+            f"{ts[0].device_mesh.mesh_dim_names}")
+    return tuple(t.to_local() for t in ts), ts[0].device_mesh, ts[0].placements
+
+
+def from_local(t: torch.Tensor, mesh, placements):
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, mesh, placements, run_check=False)
+
+
+def on_shards(what: str, fn, tensors: tuple, head_dims: tuple):
+    """``fn(*tensors)``; on DTensors, ``fn`` of their local shards
+    (``local_shards``), its result laid out as the first operand."""
+    if not is_dtensor(tensors[0]):
+        return fn(*tensors)
+    locs, mesh, placements = local_shards(what, tensors, head_dims)
+    return from_local(fn(*locs), mesh, placements)
+
+
+def _seq_parallel(attend, q, k, v, seq_axis: str):
+    """The reference's sequence-parallel prefill (``seq_axis``): the query
+    rows are sharded over the mesh axis ``seq_axis`` in contiguous runs
+    (whole 256-row blocks where the steps' rule applies), and each rank
+    attends its own rows against the whole K/V, its first row's position
+    as ``q_offset``.  The output keeps the rows sharded."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    i = mesh.mesh_dim_names.index(seq_axis)
+    if q.shape[1] % mesh.size(i):
+        raise ValueError(f"{q.shape[1]} query rows do not split evenly "
+                         f"over {mesh.size(i)} ranks of {seq_axis!r}")
+
+    def placed(t, p):
+        pl = list(settled(t).placements)
+        pl[i] = p
+        return t.redistribute(mesh, tuple(pl))
+    q = placed(q, Shard(1))
+    k, v = placed(k, Replicate()), placed(v, Replicate())
+    (ql, kl, vl), _, _ = local_shards("sequence-parallel attention",
+                                      (q, k, v), (2, 2, 2), skip=i)
+    off = mesh.get_local_rank(i) * ql.shape[1]
+    return from_local(attend(ql, kl, vl, off), mesh, q.placements)
 
 
 # ---------------------------------------------------------------------------
@@ -200,23 +320,32 @@ def _flash_bwd(static, q, k, v, out, lse, dout):
             ds = ds * (1.0 - torch.tanh(raw / logit_cap).square())
         return p, ds
 
+    def total(terms):
+        """The terms summed in order (from the first, as a zero
+        accumulator's += gives them)."""
+        acc = None
+        for t in terms:
+            acc = t if acc is None else acc + t
+        return acc
+
     # pass A: dq (q-block major, kv blocks inner)
-    dq = torch.zeros((B, nq, bq, KV, G, hd), dtype=torch.float32, device=dev)
-    for qi in range(nq):
-        for ki in range(nk):
-            _, ds = ds_block(qi, ki)
-            dq[:, qi] += torch.einsum("bkgqs,bskd->bqkgd", ds, k32[:, ki])
-    dq = dq * scale
+    dq = torch.stack([total(
+        torch.einsum("bkgqs,bskd->bqkgd", ds_block(qi, ki)[1], k32[:, ki])
+        for ki in range(nk)) for qi in range(nq)], dim=1) * scale
 
     # pass B: dk, dv (kv-block major, q blocks inner)
-    dk = torch.zeros((B, nk, bk, KV, hd), dtype=torch.float32, device=dev)
-    dv = torch.zeros_like(dk)
+    dks, dvs = [], []
     for ki in range(nk):
+        dk_terms, dv_terms = [], []
         for qi in range(nq):
             p, ds = ds_block(qi, ki)
-            dv[:, ki] += torch.einsum("bkgqs,bqkgd->bskd", p, dout32[:, qi])
-            dk[:, ki] += torch.einsum("bkgqs,bqkgd->bskd", ds,
-                                      q[:, qi].float() * scale)
+            dv_terms.append(torch.einsum("bkgqs,bqkgd->bskd", p,
+                                         dout32[:, qi]))
+            dk_terms.append(torch.einsum("bkgqs,bqkgd->bskd", ds,
+                                         q[:, qi].float() * scale))
+        dks.append(total(dk_terms))
+        dvs.append(total(dv_terms))
+    dk, dv = torch.stack(dks, dim=1), torch.stack(dvs, dim=1)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -262,6 +391,18 @@ def flash_attention(
     cache's flash entry is the flash kernel's tile, never timed for this
     function, so there the defaults always apply: the plain version the
     kernels are held against does not move with the cache."""
+    if is_dtensor(q):
+        # each rank's own attention, where its shards hold it whole: the
+        # same arithmetic on local tensors (a partial sum done first; Q
+        # heads sharded where the KV heads are not, q-TP, gathered first,
+        # as the blocking below needs them)
+        ts = tuple(settled(t) for t in (splittable(q, 2, k.shape[2]), k, v))
+        if _whole(ts, (2, 2, 2)):
+            locs, mesh, placements = local_shards("attention", ts, (2, 2, 2))
+            return from_local(flash_attention(
+                *locs, causal=causal, window=window, logit_cap=logit_cap,
+                q_offset=q_offset, kv_valid_len=kv_valid_len,
+                block_q=block_q, block_k=block_k), mesh, placements)
     B, Tq, H, hd = q.shape
     _, Tk, KV, _ = k.shape
     assert H % KV == 0, (H, KV)
@@ -277,6 +418,7 @@ def flash_attention(
         block_k = cfg["block_k"] if cfg else DEFAULT_BLOCK_K
     block_q = min(block_q, max(Tq, 1))
     block_k = min(block_k, max(Tk, 1))
+    q = splittable(q, 2, KV)
     qp = _pad_axis(q, 1, block_q)
     kp = _pad_axis(k, 1, block_k)
     vp = _pad_axis(v, 1, block_k)
@@ -288,7 +430,7 @@ def flash_attention(
     kv_len = Tk if kv_valid_len is None else kv_valid_len
     static = (causal, window, logit_cap, q_offset, kv_len)
     out = _Flash.apply(static, qp, kp, vp)             # (B,nq,bq,KV,G,hd)
-    return out.reshape(B, nq * block_q, H, hd)[:, :Tq]
+    return evenly(safe_view(out, (B, nq * block_q, H, hd)))[:, :Tq]
 
 
 # ---------------------------------------------------------------------------
@@ -311,7 +453,7 @@ def decode_attention(
     _, KV, S, _ = k_cache.shape
     G = H // KV
     scale = hd ** -0.5
-    qh = (q.reshape(B, KV, G, hd) * scale).float()
+    qh = (splittable(q, 1, KV).reshape(B, KV, G, hd) * scale).float()
     s = softcap(torch.einsum("bkgd,bksd->bkgs", qh, k_cache.float()),
                 logit_cap)
     kpos = torch.arange(S, device=q.device)
@@ -347,10 +489,70 @@ def decode_attention(
 # ---------------------------------------------------------------------------
 # Attention block (pre-norm [+ optional post-norm], GQA, RoPE, residual)
 # ---------------------------------------------------------------------------
+def splittable(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``t``, a DTensor laid out so that ``dim`` can be split into (n,
+    ...): a mesh dim sharding ``dim`` that does not divide ``n`` is
+    gathered (DTensor refuses an uneven split where a partitioner
+    reshards; e.g. q-TP's Q heads over 'model' when the KV heads do not
+    divide it).  A plain tensor is returned as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    mesh, dim = t.device_mesh, dim % t.ndim
+    want = tuple(Replicate() if p.is_shard(dim) and n % mesh.size(i) else p
+                 for i, p in enumerate(t.placements))
+    return t if want == tuple(t.placements) else t.redistribute(mesh, want)
+
+
+def evenly(t: torch.Tensor) -> torch.Tensor:
+    """``t``, a DTensor with every dim a mesh dim shards unevenly, or in
+    strides (a flattened view's ``_StridedShard``), gathered on that mesh
+    dim: DTensor keeps such a shard (an MoE capacity of 40 over 16 ranks)
+    and then refuses to view it.  A plain tensor is returned as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = t.device_mesh
+    want = tuple(p if p.is_replicate() or p.is_partial() or (
+        type(p) is Shard and not t.shape[p.dim] % mesh.size(i))
+        else Replicate() for i, p in enumerate(t.placements))
+    return t if want == tuple(t.placements) else t.redistribute(mesh, want)
+
+
+def unflatten_last(y: torch.Tensor, sizes: tuple) -> torch.Tensor:
+    """``y.unflatten(-1, sizes)``, a DTensor first made ``splittable``
+    (DTensor may shard a product's output dim wherever its inputs
+    allow)."""
+    return splittable(y, -1, sizes[0]).unflatten(-1, sizes)
+
+
+class _SafeView(torch.autograd.Function):
+    """A DTensor's ``reshape`` whose backward first lays the gradient out
+    as the forward's result was: DTensor may shard a gradient (a product's
+    weight gradient, an attention output's) on a dim that the view back
+    to the input's shape cannot split evenly."""
+
+    @staticmethod
+    def forward(ctx, w, shape):
+        out = w.reshape(shape)
+        ctx.w_shape, ctx.layout = w.shape, tuple(out.placements)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.layout:
+            g = g.redistribute(g.device_mesh, ctx.layout)
+        return g.reshape(ctx.w_shape), None
+
+
+def safe_view(t: torch.Tensor, shape: tuple) -> torch.Tensor:
+    return _SafeView.apply(t, shape) if is_dtensor(t) else t.reshape(shape)
+
+
 def _proj_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum('btd,dhx->bthx') as one matrix product."""
     d, h, hx = w.shape
-    return (x @ w.reshape(d, h * hx)).unflatten(-1, (h, hx))
+    return unflatten_last(x @ safe_view(w, (d, h * hx)), (h, hx))
 
 
 def qkv_proj(p: dict, x: torch.Tensor, cfg):
@@ -367,7 +569,7 @@ def qkv_proj(p: dict, x: torch.Tensor, cfg):
 def _proj_out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum('bthx,hxd->btd') as one matrix product."""
     h, hx, d = w.shape
-    return o.flatten(-2) @ w.reshape(h * hx, d)
+    return o.flatten(-2) @ safe_view(w, (h * hx, d))
 
 
 def attn_block_apply(
@@ -382,9 +584,12 @@ def attn_block_apply(
     cache_pos: Optional[torch.Tensor] = None,   # 0-d int tensor
     mode: str = "prefill",              # train | prefill | decode
     ring: bool = False,                 # windowed ring-buffer cache (decode)
+    write: bool = True,                 # decode: write the new K/V in place
+    seq_axis: Optional[str] = None,     # sequence-parallel prefill mesh axis
 ):
-    """Returns (y, new_kv): new_kv is (k, v) for prefill and None for train
-    and decode.
+    """Returns (y, new_kv): new_kv is (k, v) for prefill, the new token's
+    (k, v) (B, KV, 1, hd) for decode (the delta the reference's decode
+    returns) and None for train.
 
     Train runs the plain blockwise attention, whatever ``cfg.kernel_impl``
     says: the kernels have no backward.  Prefill with ``causal=False`` is
@@ -398,7 +603,19 @@ def attn_block_apply(
     update slice and wrote the delta again after the layer scan; on the GPU
     a full per-layer cache copy every step would dominate the step, while
     the in-place write moves one slot.  The cache left behind equals the
-    one the reference's ``decode_step`` returns."""
+    one the reference's ``decode_step`` returns.  ``write=False`` leaves
+    the cache unwritten, for a caller that applies the returned delta
+    itself (the reference's ``return_deltas``): the plain path attends the
+    new token beside the cache; the decode kernel reads it from the cache,
+    so on the kernel path the slot is written all the same, with the
+    value the caller's append writes again.
+
+    On DTensors (a mesh) the kernel path runs each kernel on the local
+    shards (``on_shards``), which it allows only where each rank's
+    attention is whole, and raises otherwise; ``seq_axis`` shards the
+    prefill's query rows over that mesh axis (``_seq_parallel``), on
+    either path.  The cache writes go to each rank's own shard
+    (``distributed.cache_update``)."""
     B, T, d = x.shape
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
     q, k, v = qkv_proj(p, h, cfg)
@@ -413,35 +630,59 @@ def attn_block_apply(
         capacity = kc.shape[2]
         k_new = k.transpose(1, 2).to(kc.dtype)          # (B, KV, 1, hd)
         v_new = v.transpose(1, 2).to(vc.dtype)
+        kernel = cfg.kernel_impl == "pallas" and not ring
         slot = (cache_pos % capacity) if ring else cache_pos
-        slot = torch.as_tensor(slot, device=x.device).reshape(1).long()
-        kc.index_copy_(2, slot, k_new)
-        vc.index_copy_(2, slot, v_new)
-        if cfg.kernel_impl == "pallas" and not ring:
+        if write or kernel:             # the kernel reads the new token there
+            if is_dtensor(kc):
+                from repro_torch.distributed.cache_update import append_kv
+                append_kv(kc, k_new, cache_pos, axis=2)
+                append_kv(vc, v_new, cache_pos, axis=2)
+            else:
+                idx = torch.as_tensor(slot, device=x.device).reshape(1).long()
+                kc.index_copy_(2, idx, k_new)
+                vc.index_copy_(2, idx, v_new)
+        if kernel:
             from repro_torch.kernels.decode_attention.ops import \
                 decode_attention_kvmajor
-            o = decode_attention_kvmajor(q[:, 0], kc, vc, cache_pos,
-                                         window=window,
-                                         logit_cap=cfg.attn_logit_softcap)
+            pos = cache_pos.to_local() if is_dtensor(cache_pos) else cache_pos
+            o = on_shards("the decode kernel",
+                          lambda q0, kl, vl: decode_attention_kvmajor(
+                              q0, kl, vl, pos, window=window,
+                              logit_cap=cfg.attn_logit_softcap),
+                          (q[:, 0], kc, vc), (1, 1, 1))
         else:
             o = decode_attention(q[:, 0], kc, vc,
                                  capacity if ring else cache_pos,
                                  window=None if ring else window,
                                  logit_cap=cfg.attn_logit_softcap,
                                  k_new=k_new, v_new=v_new,
-                                 exclude_slot=slot[0] if ring else None)
+                                 exclude_slot=slot if ring else None)
         o = o[:, None]                                  # (B, 1, H, hd)
-        new_kv = None
-    elif mode == "prefill" and cfg.kernel_impl == "pallas":
-        from repro_torch.kernels.flash_attention.ops import \
-            flash_attention as kernel_flash
-        o = kernel_flash(q, k, v, causal=causal, window=window,
-                         logit_cap=cfg.attn_logit_softcap)
+        new_kv = {"k": k_new, "v": v_new}
+    elif mode == "prefill":
+        cap = cfg.attn_logit_softcap
+        if cfg.kernel_impl == "pallas":
+            from repro_torch.kernels.flash_attention.ops import \
+                flash_attention as kernel_flash
+
+            def attend(q, k, v, q_offset=0):
+                return kernel_flash(q, k, v, causal=causal, window=window,
+                                    logit_cap=cap, q_offset=q_offset)
+        else:
+            def attend(q, k, v, q_offset=0):
+                return flash_attention(q, k, v, causal=causal, window=window,
+                                       logit_cap=cap, q_offset=q_offset)
+        if seq_axis is not None and is_dtensor(q):
+            o = _seq_parallel(attend, q, k, v, seq_axis)
+        elif cfg.kernel_impl == "pallas":
+            o = on_shards("the flash kernel", attend, (q, k, v), (2, 2, 2))
+        else:
+            o = attend(q, k, v)
         new_kv = {"k": k, "v": v}
     else:
         o = flash_attention(q, k, v, causal=causal, window=window,
                             logit_cap=cfg.attn_logit_softcap)
-        new_kv = {"k": k, "v": v} if mode == "prefill" else None
+        new_kv = None
 
     y = _proj_out(o, p["wo"])
     if cfg.post_block_norm:
@@ -478,13 +719,18 @@ def cross_attn_apply(p: dict, x: torch.Tensor, enc_kv: dict, cfg, *,
         if enc_last is None:
             enc_last = torch.full((1,), k.shape[1] - 1, dtype=torch.int32,
                                   device=x.device)
-        o = decode_attention_kvmajor(q[:, 0], k.transpose(1, 2),
-                                     v.transpose(1, 2), enc_last,
-                                     logit_cap=cap)[:, None]
+        o = on_shards("the decode kernel",
+                      lambda q0, kt, vt: decode_attention_kvmajor(
+                          q0, kt, vt, enc_last, logit_cap=cap),
+                      (q[:, 0], k.transpose(1, 2), v.transpose(1, 2)),
+                      (1, 1, 1))[:, None]
     else:
         from repro_torch.kernels.flash_attention.ops import \
             flash_attention as kernel_flash
-        o = kernel_flash(q, k, v, causal=False, logit_cap=cap)
+        o = on_shards("the flash kernel",
+                      lambda q, k, v: kernel_flash(q, k, v, causal=False,
+                                                   logit_cap=cap),
+                      (q, k, v), (2, 2, 2))
     return x + _proj_out(o, p["wo"])
 
 

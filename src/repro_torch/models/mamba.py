@@ -19,7 +19,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import torch_dtype
-from repro_torch.models.layers import rmsnorm
+from repro_torch.distributed import is_dtensor
+from repro_torch.models.layers import (from_local, keep_layout,
+                                       local_shards, rmsnorm)
 
 
 def dims(cfg):
@@ -173,8 +175,14 @@ def mamba_block_apply(p: dict, x: torch.Tensor, cfg, *,
         y = y1[:, None]
     elif mode == "prefill" and cfg.kernel_impl == "pallas" and state is None:
         from repro_torch.kernels.ssd_scan.ops import ssd_scan
-        y, new_ssm = ssd_scan(xs, dt, A, Bm, Cm,
-                              chunk=T // max(T // cfg.ssm_chunk_size, 1))
+        chunk = T // max(T // cfg.ssm_chunk_size, 1)
+        if is_dtensor(xs):      # on each rank's batch shard, A whole
+            (xl, dl, bl, cl), mesh, pl = local_shards(
+                "the SSD-scan kernel", (xs, dt, Bm, Cm), (None,) * 4)
+            yl, sl = ssd_scan(xl, dl, A.full_tensor(), bl, cl, chunk=chunk)
+            y, new_ssm = from_local(yl, mesh, pl), from_local(sl, mesh, pl)
+        else:
+            y, new_ssm = ssd_scan(xs, dt, A, Bm, Cm, chunk=chunk)
         y = y.to(x.dtype)
     else:
         init = state["ssm"] if state is not None else None
@@ -183,10 +191,10 @@ def mamba_block_apply(p: dict, x: torch.Tensor, cfg, *,
     y = y + xs * p["D"][:, None].to(x.dtype)
     y = y.reshape(B, T, d_in)
     y = rmsnorm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    out = y @ p["out_proj"]
+    out = keep_layout(x + y @ p["out_proj"], x)
     if mode == "train":
-        return x + out, None
-    return x + out, {"ssm": new_ssm, "conv": new_conv}
+        return out, None
+    return out, {"ssm": new_ssm, "conv": new_conv}
 
 
 def init_mamba_state(cfg, batch: int, dtype=torch.bfloat16, device=None,

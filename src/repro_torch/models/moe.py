@@ -109,8 +109,18 @@ def route_groups(h: torch.Tensor) -> torch.Tensor:
     B, T, d = h.shape
     if T > 1:
         n = ROUTE_GROUP if T % ROUTE_GROUP == 0 else T
-        return h.reshape(B * T // n, n, d)
-    return h.reshape(1, B, d)
+        return L.safe_view(h, (B * T // n, n, d))
+    return L.safe_view(h, (1, B, d))
+
+
+def _groups_only(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor laid out on its leading (group) dim alone: any other
+    shard gathered, any pending sum done."""
+    from torch.distributed.tensor import Replicate
+    want = tuple(p if p.is_shard(0) and type(p).__name__ == "Shard"
+                 else Replicate() for p in t.placements)
+    return t if want == tuple(t.placements) else t.redistribute(
+        t.device_mesh, want)
 
 
 def moe_apply(p: dict, h: torch.Tensor, cfg) -> tuple:
@@ -121,13 +131,24 @@ def moe_apply(p: dict, h: torch.Tensor, cfg) -> tuple:
 
     dispatch, combine, aux = _route(hg, p, cfg, C)
 
-    xin = torch.einsum("gnec,gnd->gecd", dispatch.to(h.dtype), hg)
+    # on DTensors each operand is first made even (``layers.evenly``): a
+    # capacity C rarely divides a mesh axis
+    ev = L.evenly
+    xin = ev(torch.einsum("gnec,gnd->gecd", ev(dispatch.to(h.dtype)), hg))
     a = torch.einsum("gecd,edf->gecf", xin, p["wg"])
     b = torch.einsum("gecd,edf->gecf", xin, p["wi"])
-    out = torch.einsum("gecf,efd->gecd", F.silu(a) * b, p["wo"])
-    y = torch.einsum("gnec,gecd->gnd", combine.to(out.dtype), out)
+    out = ev(torch.einsum("gecf,efd->gecd", ev(F.silu(a) * b), p["wo"]))
+    if L.is_dtensor(out):   # one product over (e, c) flattened, each
+        # operand sharded on its groups only: DTensor's own decomposition
+        # of this einsum may shard the capacity unevenly, or lose track of
+        # a local shape
+        g, n, E, C = combine.shape
+        y = _groups_only(combine.to(out.dtype)).reshape(g, n, E * C) \
+            @ _groups_only(out).reshape(g, E * C, out.shape[-1])
+    else:
+        y = torch.einsum("gnec,gecd->gnd", combine.to(out.dtype), out)
 
-    return y.reshape(B, T, d), aux
+    return L.safe_view(y, (B, T, d)), aux
 
 
 def moe_block_apply(p: dict, x: torch.Tensor, cfg) -> tuple:

@@ -15,8 +15,11 @@ Three modes:
   prefill — full-sequence forward, returns last-position logits + cache
   decode  — one token against the cache (the serving hot path)
 
-Prefill and decode write the cache in place and discard the MoE layers'
-load-balance loss, as the reference's do; train adds it to the loss.
+Prefill and decode write the cache in place (on a mesh, each rank its
+own shard) and discard the MoE layers' load-balance loss, as the
+reference's do; train adds it to the loss.  Decode with
+``return_deltas`` leaves the cache unwritten and returns the reference's
+deltas instead.
 Train never takes a kernel: the attention's backward is the reference's
 blockwise recomputation (``layers._Flash``), the Mamba blocks run
 ``ssd_chunked``.
@@ -29,6 +32,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, MAMBA, SWA, torch_dtype
+from repro_torch.distributed import is_dtensor
+from repro_torch.distributed.cache_update import (deltas_like, write_slice,
+                                                  write_whole)
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
@@ -106,18 +112,21 @@ def unstack(gp: dict) -> list:
 # Layer application
 # ---------------------------------------------------------------------------
 def dense_layer_apply(lp, x, cfg, *, window, mode, kv=None, cache_pos=None,
-                      positions=None, ring=False):
+                      positions=None, ring=False, write=True, seq_axis=None):
     """Returns (x, new_kv, aux): aux is the MoE load-balance loss, 0.0 (a
     float, so no kernel is launched for it) after an MLP."""
+    x0 = x
     x, new_kv = L.attn_block_apply(lp["attn"], x, cfg, window=window,
                                    mode=mode, cache=kv, cache_pos=cache_pos,
-                                   positions=positions, ring=ring)
+                                   positions=positions, ring=ring,
+                                   write=write, seq_axis=seq_axis)
+    x = L.keep_layout(x, x0)
     if "moe" in lp:
         x, aux = MOE.moe_block_apply(lp["moe"], x, cfg)
     else:
         x = L.mlp_apply(lp["mlp"], x, cfg)
         aux = 0.0
-    return x, new_kv, aux
+    return L.keep_layout(x, x0), new_kv, aux
 
 
 def _window(cfg, kind):
@@ -164,13 +173,14 @@ def init_cache(cfg, batch: int, capacity: int, windowed: bool = False,
 # ---------------------------------------------------------------------------
 # Group execution
 # ---------------------------------------------------------------------------
-def run_group_train(gp, x, cfg, kind, *, positions, remat=False):
+def run_group_train(gp, x, cfg, kind, *, positions, remat=False, bspec=None):
     """Full-sequence forward of one group; returns (x, the group's MoE aux
     loss).  ``remat`` wraps each layer body (a Zamba2 super-block: its
     Mamba stack and the shared block) in a non-reentrant
     ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint(body)``:
     only the body's input is kept, its activations are recomputed in the
-    backward."""
+    backward.  ``bspec``: each body's input is constrained to the batch
+    axes first (``layers.constrain_batch``), as the reference's are."""
     _check_kind(kind)
     window = cfg.sliding_window
     if kind == "local_global":
@@ -200,6 +210,11 @@ def run_group_train(gp, x, cfg, kind, *, positions, remat=False):
                                           mode="train", positions=positions)
             return y, aux
         layers = unstack(gp)
+    if bspec is not None:
+        inner = body
+
+        def body(y, lp):
+            return inner(L.constrain_batch(y, bspec), lp)
     aux_total = 0.0
     for lp in layers:
         if remat:
@@ -214,63 +229,81 @@ def _put(buf: dict, i: int, kv: dict, cache_pos: int) -> None:
     """Write layer i's prefill K/V (B, T, KV, hd) at [cache_pos, cache_pos+T)."""
     T = kv["k"].shape[1]
     for name in ("k", "v"):
-        buf[name][i, :, :, cache_pos:cache_pos + T] = kv[name].transpose(1, 2)
+        if is_dtensor(buf[name]):
+            write_slice(buf[name][i], kv[name].transpose(1, 2), 2, cache_pos)
+        else:
+            buf[name][i, :, :, cache_pos:cache_pos + T] = \
+                kv[name].transpose(1, 2)
 
 
 def _mamba_layer(lp, x, cfg, buf: dict, idx: tuple, mode: str,
-                 fresh: bool = False):
+                 fresh: bool = False, write: bool = True):
     """One Mamba block on the state at ``buf[...][idx]``, which it then
-    overwrites in place with the block's new state.  ``fresh``: no token
-    came before, so the block starts from ``state=None``, the zero state."""
+    overwrites in place with the block's new state (``write=False``: left
+    as it is).  ``fresh``: no token came before, so the block starts from
+    ``state=None``, the zero state.  Returns (x, the new state)."""
     st = None if fresh else {"ssm": buf["ssm"][idx], "conv": buf["conv"][idx]}
     x, new = M.mamba_block_apply(lp, x, cfg, state=st, mode=mode)
-    buf["ssm"][idx].copy_(new["ssm"])
-    buf["conv"][idx].copy_(new["conv"])
-    return x
+    if write:
+        for name in ("ssm", "conv"):
+            if is_dtensor(buf[name]):
+                write_whole(buf[name][idx], new[name])
+            else:
+                buf[name][idx].copy_(new[name])
+    return x, new
 
 
-def run_group_prefill(gp, x, cfg, kind, cache, *, positions, cache_pos=0):
+def run_group_prefill(gp, x, cfg, kind, cache, *, positions, cache_pos=0,
+                      seq_axis=None, bspec=None):
     """Forward with the cache written in place at [cache_pos, cache_pos+T).
 
     At ``cache_pos == 0`` no token came before, so the Mamba blocks start
     from ``state=None``, the zero state, which lets a kernel prefill take
     the SSD-scan kernel (``mamba.mamba_block_apply``).  Past it they read
-    their state from the cache, as the reference's always do."""
+    their state from the cache, as the reference's always do.
+    ``seq_axis``: the attention groups' sequence-parallel prefill (not the
+    hybrid's shared block, as in the reference).  ``bspec``: each layer's
+    input constrained to the batch axes (``layers.constrain_batch``), the
+    one layout the reference's scan carries through its layers."""
     fresh = cache_pos == 0
+    carry = lambda y: L.constrain_batch(y, bspec)  # noqa: E731
     _check_kind(kind)
     if kind == "local_global":
         for i in range(gp["local"]["attn"]["wq"].shape[0]):
-            x, kv_l, _ = dense_layer_apply(layer_params(gp["local"], i), x,
-                                           cfg, window=cfg.sliding_window,
+            x, kv_l, _ = dense_layer_apply(layer_params(gp["local"], i),
+                                           carry(x), cfg,
+                                           window=cfg.sliding_window,
                                            mode="prefill",
-                                           positions=positions)
+                                           positions=positions,
+                                           seq_axis=seq_axis)
             _put(cache["local"], i, kv_l, cache_pos)
             x, kv_g, _ = dense_layer_apply(layer_params(gp["global"], i), x,
                                            cfg, window=None, mode="prefill",
-                                           positions=positions)
+                                           positions=positions,
+                                           seq_axis=seq_axis)
             _put(cache["global"], i, kv_g, cache_pos)
         return x, cache
     if kind == MAMBA:
         for i in range(gp["in_proj"].shape[0]):
-            x = _mamba_layer(layer_params(gp, i), x, cfg, cache, (i,),
-                             "prefill", fresh)
+            x, _ = _mamba_layer(layer_params(gp, i), carry(x), cfg, cache,
+                                (i,), "prefill", fresh)
         return x, cache
     if kind == "hybrid_super":
         count, inner = gp["mamba"]["in_proj"].shape[:2]
         for i in range(count):
             stack = layer_params(gp["mamba"], i)
             for j in range(inner):
-                x = _mamba_layer(layer_params(stack, j), x, cfg,
-                                 cache["mamba"], (i, j), "prefill", fresh)
+                x, _ = _mamba_layer(layer_params(stack, j), carry(x), cfg,
+                                    cache["mamba"], (i, j), "prefill", fresh)
             x, kv, _ = dense_layer_apply(gp["shared"], x, cfg,
-                                      window=cfg.sliding_window,
-                                      mode="prefill", positions=positions)
+                                         window=cfg.sliding_window,
+                                         mode="prefill", positions=positions)
             _put(cache, i, kv, cache_pos)
         return x, cache
     for i in range(gp["attn"]["wq"].shape[0]):
-        x, kv, _ = dense_layer_apply(layer_params(gp, i), x, cfg,
-                                  window=_window(cfg, kind), mode="prefill",
-                                  positions=positions)
+        x, kv, _ = dense_layer_apply(layer_params(gp, i), carry(x), cfg,
+                                     window=_window(cfg, kind), mode="prefill",
+                                     positions=positions, seq_axis=seq_axis)
         _put(cache, i, kv, cache_pos)
     return x, cache
 
@@ -279,49 +312,98 @@ def _layer_cache(buf: dict, i: int) -> dict:
     return {"k": buf["k"][i], "v": buf["v"][i]}
 
 
-def run_group_decode(gp, x, cfg, kind, cache, *, pos, windowed=False):
+def _stacked(per_layer: list) -> dict:
+    """Per-layer dicts of tensors as one dict, each leaf stacked on a new
+    leading layer axis (a list of lists of dicts: two axes)."""
+    if isinstance(per_layer[0], list):
+        per_layer = [_stacked(inner) for inner in per_layer]
+    return {k: torch.stack([d[k] for d in per_layer])
+            for k in per_layer[0]}
+
+
+def run_group_decode(gp, x, cfg, kind, cache, *, pos, windowed=False,
+                     return_deltas=False, bspec=None):
     """One-token step.  pos: 0-d int tensor — the slot the new token lands in.
     windowed=True: sliding-window layers (and Zamba2's shared block) use
     ring-buffer caches.  The cache is updated in place: K/V as in
-    ``layers.attn_block_apply``, the SSM and conv state by ``_mamba_layer``."""
+    ``layers.attn_block_apply``, the SSM and conv state by ``_mamba_layer``.
+    Returns (x, cache).
+
+    ``return_deltas``: the cache is left unwritten and the second result
+    is the group's deltas, the reference's: each K/V leaf's new token
+    stacked over the layers, (count, B, KV, 1, hd), and each state leaf's
+    new state; on DTensors laid out as the cache leaves with the sequence
+    axis whole (``cache_update.deltas_like``), ready for
+    ``cache_update.apply_cache_deltas``.  ``bspec`` as
+    ``run_group_prefill``'s."""
     _check_kind(kind)
+    carry = lambda y: L.constrain_batch(y, bspec)  # noqa: E731
     positions = pos.reshape(1)
+    write = not return_deltas
     if kind == "local_global":
+        dl, dg = [], []
         for i in range(gp["local"]["attn"]["wq"].shape[0]):
-            x, _, _ = dense_layer_apply(layer_params(gp["local"], i), x, cfg,
-                                     window=cfg.sliding_window, mode="decode",
-                                     kv=_layer_cache(cache["local"], i),
-                                     cache_pos=pos, positions=positions,
-                                     ring=windowed)
-            x, _, _ = dense_layer_apply(layer_params(gp["global"], i), x, cfg,
-                                     window=None, mode="decode",
-                                     kv=_layer_cache(cache["global"], i),
-                                     cache_pos=pos, positions=positions)
-        return x, cache
-    if kind == MAMBA:
+            x, kv_l, _ = dense_layer_apply(
+                layer_params(gp["local"], i), carry(x), cfg,
+                window=cfg.sliding_window, mode="decode",
+                kv=_layer_cache(cache["local"], i), cache_pos=pos,
+                positions=positions, ring=windowed, write=write)
+            x, kv_g, _ = dense_layer_apply(
+                layer_params(gp["global"], i), x, cfg, window=None,
+                mode="decode", kv=_layer_cache(cache["global"], i),
+                cache_pos=pos, positions=positions, write=write)
+            dl.append(kv_l)
+            dg.append(kv_g)
+
+        def deltas():
+            return {"local": _stacked(dl), "global": _stacked(dg)}
+    elif kind == MAMBA:
+        states = []
         for i in range(gp["in_proj"].shape[0]):
-            x = _mamba_layer(layer_params(gp, i), x, cfg, cache, (i,),
-                             "decode")
-        return x, cache
-    if kind == "hybrid_super":
+            x, st = _mamba_layer(layer_params(gp, i), carry(x), cfg, cache,
+                                 (i,), "decode", write=write)
+            states.append(st)
+
+        def deltas():
+            return _stacked(states)
+    elif kind == "hybrid_super":
         count, inner = gp["mamba"]["in_proj"].shape[:2]
+        states, kvs = [], []
         for i in range(count):
             stack = layer_params(gp["mamba"], i)
+            states.append([])
             for j in range(inner):
-                x = _mamba_layer(layer_params(stack, j), x, cfg,
-                                 cache["mamba"], (i, j), "decode")
-            x, _, _ = dense_layer_apply(gp["shared"], x, cfg,
-                                     window=cfg.sliding_window, mode="decode",
-                                     kv=_layer_cache(cache, i), cache_pos=pos,
-                                     positions=positions, ring=windowed)
+                x, st = _mamba_layer(layer_params(stack, j), carry(x), cfg,
+                                     cache["mamba"], (i, j), "decode",
+                                     write=write)
+                states[-1].append(st)
+            x, kv, _ = dense_layer_apply(gp["shared"], x, cfg,
+                                         window=cfg.sliding_window,
+                                         mode="decode",
+                                         kv=_layer_cache(cache, i),
+                                         cache_pos=pos, positions=positions,
+                                         ring=windowed, write=write)
+            kvs.append(kv)
+
+        def deltas():
+            return {"mamba": _stacked(states), **_stacked(kvs)}
+    else:
+        ring = windowed and kind == SWA
+        kvs = []
+        for i in range(gp["attn"]["wq"].shape[0]):
+            x, kv, _ = dense_layer_apply(layer_params(gp, i), carry(x), cfg,
+                                         window=_window(cfg, kind),
+                                         mode="decode",
+                                         kv=_layer_cache(cache, i),
+                                         cache_pos=pos, positions=positions,
+                                         ring=ring, write=write)
+            kvs.append(kv)
+
+        def deltas():
+            return _stacked(kvs)
+    if not return_deltas:
         return x, cache
-    ring = windowed and kind == SWA
-    for i in range(gp["attn"]["wq"].shape[0]):
-        x, _, _ = dense_layer_apply(layer_params(gp, i), x, cfg,
-                                 window=_window(cfg, kind), mode="decode",
-                                 kv=_layer_cache(cache, i), cache_pos=pos,
-                                 positions=positions, ring=ring)
-    return x, cache
+    return x, deltas_like(deltas(), cache)
 
 
 # ---------------------------------------------------------------------------
@@ -354,12 +436,27 @@ def logits_last(params, h_last, cfg):
     return L.softcap(out, cfg.final_logit_softcap)
 
 
+def _roll_left(tokens):
+    """``torch.roll(tokens, -1, dims=1)``; a DTensor's on each rank's own
+    rows, its sequence made whole first (not every DTensor release has a
+    rule for ``roll``)."""
+    if not is_dtensor(tokens):
+        return torch.roll(tokens, -1, dims=1)
+    from torch.distributed.tensor import Replicate
+    want = tuple(Replicate() if p.is_shard(1) or p.is_partial() else p
+                 for p in tokens.placements)
+    if want != tuple(tokens.placements):
+        tokens = tokens.redistribute(tokens.device_mesh, want)
+    return L.from_local(torch.roll(tokens.to_local(), -1, dims=1),
+                        tokens.device_mesh, want)
+
+
 def next_token_targets(tokens):
     """(labels, mask) of next-token prediction: tokens rolled left by one,
     the last position masked out."""
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
     mask[:, -1] = 0.0
-    return torch.roll(tokens, -1, dims=1), mask
+    return _roll_left(tokens), mask
 
 
 def chunked_ce_loss(params, h, labels, mask, cfg, chunk: int = 512):
@@ -381,7 +478,10 @@ def chunked_ce_loss(params, h, labels, mask, cfg, chunk: int = 512):
     def per_chunk(hh, ll, mm, w):
         logits = L.softcap(hh.float() @ w.float(), cfg.final_logit_softcap)
         lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, ll[..., None].long())[..., 0]
+        gold = logits.gather(-1, ll[..., None].long())
+        if is_dtensor(gold):    # a vocab-sharded gather's pending sum
+            gold = L.settled(gold)
+        gold = gold[..., 0]
         return ((lse - gold) * mm).sum()
 
     total = sum(checkpoint(per_chunk, h[:, c:c + chunk],
@@ -394,56 +494,74 @@ def chunked_ce_loss(params, h, labels, mask, cfg, chunk: int = 512):
 # ---------------------------------------------------------------------------
 # Public entry points
 # ---------------------------------------------------------------------------
-def forward_full(params, x, cfg, *, positions, remat=False):
+def forward_full(params, x, cfg, *, positions, remat=False, bspec=None):
     """Train-mode trunk: groups -> final norm.  Returns (h, the MoE aux
     loss summed over layers, a float32 scalar)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for gp, (kind, _) in zip(params["groups"], cfg.layer_groups):
         x, aux = run_group_train(gp, x, cfg, kind, positions=positions,
-                                 remat=remat)
+                                 remat=remat, bspec=bspec)
         aux_total = aux_total + aux
     return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux_total
 
 
-def train_loss(params, batch, cfg, *, remat=True):
+def train_loss(params, batch, cfg, *, remat=True, bspec=None):
     """batch: {'tokens': (B, T) int, optional 'patch_embeds': (B, P, d)}.
     Next-token cross-entropy over the text positions (the last one
     masked), plus ``router_aux_loss_coef`` x the MoE aux loss.  Returns
-    (loss, {'ce', 'aux'})."""
+    (loss, {'ce', 'aux'}).  ``bspec``: the mesh axes the activations'
+    batch is constrained to (``layers.constrain_batch``)."""
     tokens = batch["tokens"]
-    x = embed_tokens(params, tokens, cfg,
-                     patch_embeds=batch.get("patch_embeds"))
+    x = L.constrain_batch(embed_tokens(params, tokens, cfg,
+                                       patch_embeds=batch.get("patch_embeds")),
+                          bspec)
     T = x.shape[1]
     positions = torch.arange(T, device=x.device)
-    h, aux = forward_full(params, x, cfg, positions=positions, remat=remat)
-    h_text = h[:, T - tokens.shape[1]:]
+    h, aux = forward_full(params, x, cfg, positions=positions, remat=remat,
+                          bspec=bspec)
+    h_text = L.constrain_batch(h[:, T - tokens.shape[1]:], bspec)
     ce = chunked_ce_loss(params, h_text, *next_token_targets(tokens), cfg)
     loss = ce + cfg.router_aux_loss_coef * aux
     return loss, {"ce": ce, "aux": aux}
 
 
-def prefill(params, batch, cfg, capacity: int):
+def prefill(params, batch, cfg, capacity: int, bspec=None, seq_axis=None,
+            cache=None):
     """Returns (last_logits (B,V) f32, cache) with cache capacity ``capacity``.
     batch: {'tokens': (B, T) int, optional 'patch_embeds': (B, P, d)}; the
-    cache then holds P + T positions."""
-    x = embed_tokens(params, batch["tokens"], cfg,
-                     patch_embeds=batch.get("patch_embeds"))
+    cache then holds P + T positions.  ``cache``: a zero cache to fill in
+    place (under a mesh, DTensors laid out by the steps' cache specs);
+    None allocates a plain one.  ``bspec`` and ``seq_axis`` as the
+    reference's."""
+    x = L.constrain_batch(embed_tokens(params, batch["tokens"], cfg,
+                                       patch_embeds=batch.get("patch_embeds")),
+                          bspec)
     B, T = x.shape[0], x.shape[1]
     positions = torch.arange(T, device=x.device)
-    cache = init_cache(cfg, B, capacity, device=x.device)
+    if cache is None:
+        cache = init_cache(cfg, B, capacity, device=x.device)
     for gp, c, (kind, _) in zip(params["groups"], cache, cfg.layer_groups):
-        x, _ = run_group_prefill(gp, x, cfg, kind, c, positions=positions)
+        x, _ = run_group_prefill(gp, x, cfg, kind, c, positions=positions,
+                                 seq_axis=seq_axis, bspec=bspec)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return logits_last(params, x[:, -1], cfg), cache
 
 
-def decode_step(params, cache, tokens, pos, cfg, windowed: bool = False):
+def decode_step(params, cache, tokens, pos, cfg, windowed: bool = False,
+                bspec=None, return_deltas: bool = False):
     """tokens: (B,) int new token ids; pos: 0-d int tensor slot index.
 
     Returns (logits (B,V) f32, cache).  The cache is updated in place and
-    the same list is returned."""
-    x = embed_tokens(params, tokens[:, None], cfg)
+    the same list is returned; with ``return_deltas`` it is left
+    unwritten and the second result is each group's deltas
+    (``run_group_decode``)."""
+    x = L.constrain_batch(embed_tokens(params, tokens[:, None], cfg), bspec)
+    out = []
     for gp, c, (kind, _) in zip(params["groups"], cache, cfg.layer_groups):
-        x, _ = run_group_decode(gp, x, cfg, kind, c, pos=pos, windowed=windowed)
+        x, nc = run_group_decode(gp, x, cfg, kind, c, pos=pos,
+                                 windowed=windowed,
+                                 return_deltas=return_deltas, bspec=bspec)
+        out.append(nc)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return logits_last(params, x[:, 0], cfg), cache
+    return logits_last(params, x[:, 0], cfg), (out if return_deltas
+                                                else cache)

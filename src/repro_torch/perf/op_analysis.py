@@ -13,8 +13,11 @@ dispatched.  It returns ``analyze_hlo``'s keys:
     channels per group) * prod(kernel dims);
   * hbm_bytes: operand and result bytes of every op that is not a view
     (a view moves nothing), each tensor at its own dtype's size;
-  * coll_bytes / coll_count (every collective at 0: one card runs no
-    collective), total_coll_bytes;
+  * coll_bytes / coll_count, total_coll_bytes: each collective a
+    DTensor program dispatches, by kind, at the reference's ring factors
+    (``hlo_analysis``): all-gather 1 x result, all-reduce 2 x result,
+    reduce-scatter 1 x operand, all-to-all and collective-permute 1 x
+    result (a plain program has none);
   * n_ops and op_hist, the op-class mix over ``OP_CLASSES``, the cost
     model's fingerprint (``perf/cost_model.py``);
   * warnings: ops counted as ``elementwise`` only because no class names
@@ -73,6 +76,18 @@ one-to-one count:
     dropped, as JAX drops it before it lowers (the MoE layer's auxiliary
     loss, which the served step discards).
 
+On DTensors (a program laid out on a ``DeviceMesh``, ``launch/steps.py``)
+the count is one rank's program: the counter declines each DTensor op
+(returns ``NotImplemented``), so DTensor dispatches it and the ops it
+runs on the rank's local shards, and the collectives of its
+redistributions, come back through the counter at their local shapes;
+the ops DTensor runs on fake tensors to propagate global shapes are not
+counted.  Such a count has FLOPs, bytes and collectives only: ``n_ops``
+and ``op_hist`` (the cost model's fingerprint of a whole program) are
+None.  A mesh of host devices makes DTensor take an all-gather and a
+chunk where a CUDA mesh takes an all-to-all (gloo has none), and that is
+what the count sees.
+
 Known difference: what remains is the code each package writes its own
 way (the SSM chunk loop slices where the reference scans); over the 20
 served modules at full width the histogram is within 0.022 of the
@@ -82,6 +97,7 @@ has no counterpart and is not returned.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from collections import Counter
 from typing import Optional
@@ -90,6 +106,8 @@ import torch
 from torch.overrides import TorchFunctionMode
 from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.distributed import is_dtensor
 
 OP_CLASSES = ("conv", "depthwise", "dense", "rnn", "elementwise",
               "reshuffle")
@@ -425,8 +443,52 @@ def _einsum_ops(equation: str) -> Counter:
 _MATMULS = {torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__}
 
 
+def _leaves(tree) -> list:
+    """The leaves of an op's arguments or results: tuples, lists and dicts
+    opened (a faster ``pytree.tree_leaves`` for what ops take)."""
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
 def _tensors(tree) -> list:
-    return [x for x in pytree.tree_leaves(tree) if isinstance(x, torch.Tensor)]
+    """The tensors of a tree, a DTensor as its local shard (what the
+    counted local ops produced)."""
+    return [x._local_tensor if is_dtensor(x) else x
+            for x in _leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+# collective ops (``_c10d_functional``, DTensor's ``_dtensor``) -> the HLO
+# kind and the ring factor on (result, operand) bytes of the reference's
+# ``hlo_analysis``
+_COLL_NAMESPACES = ("_c10d_functional", "c10d_functional", "_dtensor")
+_NOT_COLLECTIVES = ("wait_tensor", "_wrap_tensor_autograd")
+
+
+def _collective(func) -> Optional[tuple]:
+    """(kind, result factor, operand factor) of a collective op, None for
+    any other op."""
+    if getattr(func, "namespace", None) not in _COLL_NAMESPACES:
+        return None
+    name = func.overloadpacket.__name__
+    if name in _NOT_COLLECTIVES:
+        return None
+    if "all_gather" in name:
+        return "all-gather", 1, 0
+    if "all_reduce" in name:
+        return "all-reduce", 2, 0
+    if "reduce_scatter" in name:
+        return "reduce-scatter", 0, 1
+    if "all_to_all" in name or "alltoall" in name:
+        return "all-to-all", 1, 0
+    return "collective-permute", 1, 0
+
+
+def _is_fake(leaves) -> bool:
+    from torch._subclasses.fake_tensor import FakeTensor
+    return any(isinstance(x, FakeTensor) for x in leaves)
 
 
 def _is_view(func) -> bool:
@@ -463,8 +525,11 @@ def _meta_key(x):
 
 
 class _OpCounter(TorchDispatchMode):
-    def __init__(self):
+    def __init__(self, classes: bool = True):
+        """``classes``: also count each op's HLO opcodes (the histogram);
+        without, only FLOPs, bytes and collectives."""
         super().__init__()
+        self.classes = classes
         # one node per counted op: (opcodes, operand ids, result ids,
         # writes an operand); what reaches no result is dropped at the end
         # as JAX drops dead code before it lowers
@@ -473,6 +538,8 @@ class _OpCounter(TorchDispatchMode):
         self._producer: dict = {}   # tensor id -> index of its node
         self.flops = 0.0
         self.hbm = 0.0
+        self.coll_bytes = Counter()
+        self.coll_count = Counter()
         self.warnings: set = set()
         self.muted = 0          # inside a composite counted as a whole
         # id -> tensor (kept alive, so an id is never reused): float32
@@ -600,8 +667,22 @@ class _OpCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        leaves = _leaves((args, kwargs))
+        if any(is_dtensor(x) for x in leaves):
+            return NotImplemented   # DTensor runs it; its local ops come back
+        if _is_fake(leaves):
+            return func(*args, **kwargs)    # DTensor's global-shape pass
         out = self._run(func, args, kwargs)
+        if _is_fake(_leaves(out)):
+            return out
         name = _base_name(func)
+        coll = _collective(func)
+        if coll is not None:
+            kind, f_out, f_in = coll
+            nbytes = lambda ts: sum(_numel(t) * t.element_size()  # noqa: E731
+                                    for t in _tensors(ts))
+            self.coll_bytes[kind] += f_out * nbytes(out) + f_in * nbytes(args)
+            self.coll_count[kind] += 1
         if name in _DENSE_OPS:
             self.flops += _dense_flops(name, args, out)
         elif name in _CONV_OPS:
@@ -609,8 +690,10 @@ class _OpCounter(TorchDispatchMode):
         if not _is_view(func):
             self.hbm += sum(_numel(t) * t.element_size()
                             for t in _tensors((args, kwargs, out)))
-        if not self.muted:
-            if name == "select":
+        if self.classes and not self.muted:
+            if getattr(func, "namespace", None) in _COLL_NAMESPACES:
+                lowered = Counter({coll[0]: 1} if coll else {})
+            elif name == "select":
                 lowered = self._loop_index(args[0], args[1] % args[0].dim(),
                                            args[2])
             elif name in _RESHAPES and id(args[0]) in self.products:
@@ -706,23 +789,27 @@ def analyze_ops(fn, *args) -> dict:
     dtype) and count what it dispatches.  Returns ``analyze_hlo``'s keys
     (see the module docstring)."""
     args = pytree.tree_map(_to_meta, args)
-    counter = _OpCounter()
+    ranked = any(is_dtensor(t) for t in pytree.tree_leaves(args))
+    counter = _OpCounter(classes=not ranked)
     counter.inputs = {id(t) for t in _tensors(args)}
-    with torch.no_grad(), counter, _Composites(counter):
+    with torch.no_grad(), counter, (
+            contextlib.nullcontext() if ranked else _Composites(counter)):
         results = fn(*args)
+    coll_bytes = {k: float(counter.coll_bytes[k]) for k in _COLLECTIVES}
+    out = {
+        "flops": counter.flops,
+        "hbm_bytes": counter.hbm,
+        "coll_bytes": coll_bytes,
+        "coll_count": {k: counter.coll_count[k] for k in _COLLECTIVES},
+        "total_coll_bytes": sum(coll_bytes.values()),
+        "warnings": sorted(counter.warnings),
+    }
+    if ranked:      # the op classes describe a program, not a rank's part
+        return {**out, "n_ops": None, "op_hist": None}
     op_counts = {k: 0.0 for k in OP_CLASSES}
     for opcode, n in counter.live_opcodes(results).items():
         op_counts[_hlo_class(opcode)] += float(n)
     n_ops = sum(op_counts.values())
-    coll_bytes = {k: 0.0 for k in _COLLECTIVES}
-    return {
-        "flops": counter.flops,
-        "hbm_bytes": counter.hbm,
-        "coll_bytes": coll_bytes,
-        "coll_count": {k: 0 for k in _COLLECTIVES},
-        "total_coll_bytes": sum(coll_bytes.values()),
-        "n_ops": n_ops,
-        "op_hist": {k: (v / n_ops if n_ops else 0.0)
-                    for k, v in op_counts.items()},
-        "warnings": sorted(counter.warnings),
-    }
+    return {**out, "n_ops": n_ops,
+            "op_hist": {k: (v / n_ops if n_ops else 0.0)
+                        for k, v in op_counts.items()}}

@@ -1,4 +1,5 @@
-"""The card's constants, and the roofline terms the cost model reads.
+"""The card's constants, the roofline terms the cost model reads, and the
+dry-run's roofline of one rank's program.
 
 The constants are one NVIDIA H100 SXM's, from NVIDIA's data sheet: the
 counterpart of the hardware constants of ``repro.perf.roofline``, which
@@ -11,12 +12,20 @@ from them.
 reference's.  ``bound_time_features`` keeps the reference's TPU v5e rates
 as its defaults (``PEAK_FLOPS``, ``HBM_BW``, ``ICI_BW``): the cost model
 always passes the priced device's own rates, and its simulated devices are
-the reference's.  The reference's ``Roofline`` dataclass, ``analyze`` and
-``save_json`` are not ported yet: their only caller is ``launch/dryrun.py``,
-which comes with training and distribution (ROADMAP queue 1, item 5).
+the reference's.
+
+``Roofline``, ``analyze`` and ``save_json`` are the reference's, for
+``launch/dryrun.py``: ``analyze`` counts the step function itself on meta
+tensors (``perf.op_analysis``, one rank's program on DTensors) where the
+reference reads a compiled module, and its three terms are priced on the
+card: ``BF16_FLOPS``, ``HBM_BPS`` and ``NVLINK_BPS``.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Optional
 
 # --- TPU v5e constants, the reference's defaults for bound_time_features ---
 PEAK_FLOPS = 197e12        # bf16 FLOP/s
@@ -30,6 +39,11 @@ F32_FLOPS = 67e12           # float32 peak outside the tensor cores, FLOP/s
 HBM_BPS = 3.35e12           # device memory, bytes/s
 SMEM_PER_BLOCK = 232_448    # shared memory one block can use (227 KB), bytes
 NUM_SMS = 132               # streaming multiprocessors
+# One direction of the H100 SXM's NVLink 4 (900 GB/s both ways, NVIDIA's
+# data sheet): the counterpart of ICI_BW.  A 256-rank mesh spans 32
+# eight-GPU nodes, whose links between nodes are slower, so t_collective
+# priced at this rate is a lower bound.
+NVLINK_BPS = 450e9
 
 
 def bound_time_features(flops: float, hbm_bytes: float,
@@ -67,3 +81,121 @@ def model_flops(cfg, shape) -> float:
         return 2.0 * n * tokens
     tokens = shape.global_batch  # decode: one token per sequence
     return 2.0 * n * tokens
+
+
+@dataclasses.dataclass
+class Roofline:
+    flops: float               # per-rank FLOPs per step
+    hbm_bytes: float           # per-rank device-memory traffic per step
+    coll_bytes: float          # per-rank collective link bytes per step
+    chips: int
+    model_flops: float = 0.0   # analytic useful FLOPs (global)
+    coll_detail: Optional[dict] = None
+    xla_cost: Optional[dict] = None     # no XLA here: always None
+    memory_per_chip: float = 0.0
+    memory: Optional[dict] = None       # the record's memory_analysis
+
+    @property
+    def t_compute(self) -> float:
+        return self.flops / BF16_FLOPS
+
+    @property
+    def t_memory(self) -> float:
+        return self.hbm_bytes / HBM_BPS
+
+    @property
+    def t_collective(self) -> float:
+        return self.coll_bytes / NVLINK_BPS
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.t_compute, "memory": self.t_memory,
+                 "collective": self.t_collective}
+        return max(terms, key=terms.get)
+
+    @property
+    def bound_time(self) -> float:
+        return max(self.t_compute, self.t_memory, self.t_collective)
+
+    @property
+    def useful_flops_ratio(self) -> float:
+        """(model_flops/chips) / flops_per_chip — how much of the counted
+        compute is useful; <1 means remat/replication/dispatch waste."""
+        if not self.flops:
+            return 0.0
+        return (self.model_flops / self.chips) / self.flops
+
+    def to_dict(self) -> dict:
+        return {
+            "flops_per_chip": self.flops, "hbm_bytes_per_chip": self.hbm_bytes,
+            "coll_bytes_per_chip": self.coll_bytes, "chips": self.chips,
+            "model_flops_global": self.model_flops,
+            "t_compute": self.t_compute, "t_memory": self.t_memory,
+            "t_collective": self.t_collective, "dominant": self.dominant,
+            "useful_flops_ratio": self.useful_flops_ratio,
+            "memory_per_chip": self.memory_per_chip,
+            "coll_detail": self.coll_detail,
+            "xla_cost": self.xla_cost,
+        }
+
+
+def _temp_bytes(fn, args) -> tuple:
+    """(fn's results, the peak bytes it allocates while it runs, or None,
+    and why not).  ``MemTracker`` (``torch.distributed._tools``) over one
+    run on the meta tensors themselves: every tensor the step makes,
+    its results included, at its local shape."""
+    try:
+        from torch.distributed._tools.mem_tracker import MemTracker
+        tracker = MemTracker()
+        with tracker:
+            out = fn(*args)
+        peak = tracker.get_tracker_snapshot("peak")
+        return out, float(sum(v["Total"] for v in peak.values())), None
+    except (ImportError, RuntimeError, TypeError, AttributeError) as e:
+        return fn(*args), None, f"MemTracker failed: {type(e).__name__}: {e}"
+
+
+def memory_analysis(fn, args) -> tuple:
+    """(fn's results, the reference's memory_analysis keys): argument,
+    output and alias bytes are this rank's shard bytes of the arguments,
+    the results and the results that are arguments (a cache written in
+    place); temp the peak ``_temp_bytes`` finds."""
+    from repro_torch.distributed.sharding import (local_bytes,
+                                                  tree_map_with_path)
+    out, temp, why = _temp_bytes(fn, args)
+    ids = set()
+    tree_map_with_path(lambda _, t: ids.add(id(t)), list(args))
+    aliased = []
+    tree_map_with_path(lambda _, t: aliased.append(t) if id(t) in ids
+                       else None, list(out) if isinstance(out, tuple)
+                       else [out])
+    mem = {"argument_size": local_bytes(list(args)),
+           "output_size": local_bytes(list(out) if isinstance(out, tuple)
+                                      else [out]),
+           "temp_size": temp, "alias_size": local_bytes(aliased),
+           "generated_code_size": None}
+    if why:
+        mem["temp_reason"] = why
+    return out, mem
+
+
+def analyze(fn, args, cfg, shape, chips: int) -> Roofline:
+    """The roofline of ``fn(*args)`` (one rank's step on meta DTensors):
+    one run for its memory (``memory_analysis``), one counted by
+    ``op_analysis.analyze_ops``."""
+    from repro_torch.perf.op_analysis import analyze_ops
+    _, mem = memory_analysis(fn, args)
+    h = analyze_ops(fn, *args)
+    per_chip = (mem["temp_size"] or 0.0) + mem["argument_size"] \
+        + mem["output_size"] - mem["alias_size"]
+    return Roofline(
+        flops=h["flops"], hbm_bytes=h["hbm_bytes"],
+        coll_bytes=h["total_coll_bytes"], chips=chips,
+        model_flops=model_flops(cfg, shape),
+        coll_detail={"bytes": h["coll_bytes"], "count": h["coll_count"]},
+        xla_cost=None, memory_per_chip=per_chip, memory=mem)
+
+
+def save_json(path: str, record: dict) -> None:
+    with open(path, "w") as f:
+        json.dump(record, f, indent=2)

@@ -19,14 +19,15 @@ from repro_torch.training.data import DataConfig, TokenStream
 
 
 def loss_and_grads(params, batch: dict, cfg: ModelConfig, *,
-                   remat: bool = True):
+                   remat: bool = True, bspec=None):
     """``jax.value_and_grad`` of ``api.train_loss`` with its metrics:
     returns (loss, {'ce', 'aux'}, grads), the gradients in the parameters'
     tree (zero for a leaf the loss does not reach, such as a cross-
-    attention block's unused ``norm``)."""
+    attention block's unused ``norm``).  ``bspec``: ``train_loss``'s batch
+    constraint (a mesh's DTensors)."""
     p = adamw.tree_map(lambda t: t.detach().requires_grad_(), params)
     leaves = adamw.tree_leaves(p)
-    loss, metrics = api.train_loss(p, batch, cfg, remat=remat)
+    loss, metrics = api.train_loss(p, batch, cfg, remat=remat, bspec=bspec)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                 materialize_grads=True)
     by_leaf = {id(t): g for t, g in zip(leaves, grads)}

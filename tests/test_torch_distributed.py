@@ -1,0 +1,413 @@
+"""The port's sharded steps (``repro_torch.launch.steps``) on real
+multi-process meshes on the CPU, against the reference's own sharded
+steps and the port's unsharded entry points.
+
+Each port run is 4 or 8 ``gloo`` processes (this file run as a script, one
+intra-op thread per rank, ``init_method="file://"``); rank 0 writes what
+it gathered to an ``.npz``.  The reference runs in a subprocess with 8
+host devices on an Auto-axis mesh (``jax.make_mesh`` defaults to
+Explicit axes since jax 0.9, on which its own multi-device tests fail)
+and hands its arrays back through its own ``training.checkpoint``, which
+the port's reads.  Every run has a timeout of its own, so a hang fails
+the test instead of stalling the suite.
+
+Tolerances: the train step's losses within 1e-4 relative, each parameter
+leaf's change over the two steps within 1e-4 of its largest at the 99.9th
+percentile and within 1e-2 everywhere (the rule of
+tests/test_torch_training.py: AdamW divides each gradient by its own
+running size, so an element whose gradient lies at the float32 noise of
+its leaf moves by up to ``lr`` either way), the first bound no finer
+than two float32 spacings of the parameter (the resolution of a change
+the two steps round into it), the second no finer than the reference's
+own difference between its (4, 2) and (8, 1) runs of the same steps (its
+float32 partitioning noise: 1.8e-2 of the largest change of one MLP
+leaf); the bf16 decode against the reference's sharded decode at the
+reference's own 5e-2; the float32 sharded steps against the port's
+unsharded ones at 1e-5 (the sharded products sum in another order)."""
+
+import os
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+TIMEOUT = 300            # seconds, per multi-process run
+
+
+# ---------------------------------------------------------------------------
+# The reference's sharded steps (8 host devices, Auto-axis mesh)
+# ---------------------------------------------------------------------------
+REF_PRELUDE = r"""
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import AxisType
+from repro.configs.base import get_config, InputShape
+from repro.distributed.sharding import MeshInfo
+from repro.launch import steps as steps_lib
+from repro.models import api
+from repro.training import adamw, checkpoint
+out = sys.argv[1]
+mesh = jax.make_mesh((4, 2), ("data", "model"),
+                     axis_types=(AxisType.Auto, AxisType.Auto))
+minfo = MeshInfo(mesh)
+"""
+
+REF_TRAIN = REF_PRELUDE + r"""
+cfg = get_config("smollm_360m", tiny=True).replace(
+    num_heads=4, num_kv_heads=2, head_dim=32, d_model=128, d_ff=256,
+    vocab_size=512, dtype="float32")
+shape = InputShape("t", 64, 8, "train")
+rng = jax.random.PRNGKey(0)
+params = api.init_params(rng, cfg)
+batch = api.make_batch(rng, cfg, shape)
+checkpoint.save(f"{out}/ref_train0.npz", 0, jax.device_get(params))
+# the (4, 2) mesh, and the same steps on (8, 1): the reference's own
+# partitioning noise
+for name, m in (("", mesh), ("_8x1", jax.make_mesh(
+        (8, 1), ("data", "model"), axis_types=(AxisType.Auto,) * 2))):
+    with m:
+        fn, _, in_sh, _ = steps_lib.make_train_step(cfg, MeshInfo(m), shape,
+                                                    num_microbatches=2)
+        p = jax.device_put(params, in_sh[0])
+        o = jax.device_put(adamw.init(params), in_sh[1])
+        b = jax.device_put(batch, in_sh[2])
+        p, o, m1 = fn(p, o, b)
+        p, o, m2 = fn(p, o, b)
+    checkpoint.save(f"{out}/ref_train2{name}.npz", 2, jax.device_get(p))
+    if not name:
+        losses = [float(m1["loss"]), float(m2["loss"])]
+np.savez(f"{out}/ref_train.npz", tokens=np.asarray(batch["tokens"]),
+         losses=np.array(losses))
+print("REF_OK")
+"""
+
+REF_DECODE = REF_PRELUDE + r"""
+cfg = get_config("mixtral_8x22b", tiny=True)
+B, S = 8, 128
+shape = InputShape("d", S, B, "decode")
+rng = jax.random.PRNGKey(0)
+params = api.init_params(rng, cfg)
+prefix = jax.random.randint(rng, (B, S - 1), 0, cfg.vocab_size, jnp.int32)
+_, cache = api.prefill(params, {"tokens": prefix}, cfg, capacity=S)
+tok = jax.random.randint(jax.random.PRNGKey(1), (B,), 0, cfg.vocab_size,
+                         jnp.int32)
+pos = jnp.asarray(S - 1, jnp.int32)
+checkpoint.save(f"{out}/ref_decode_in.npz", 0, jax.device_get(params),
+                jax.device_get(cache))
+with mesh:
+    fn, _, _, _ = steps_lib.make_decode_step(cfg, minfo, shape)
+    logits, new_cache = fn(params, cache, tok, pos)
+checkpoint.save(f"{out}/ref_decode_out.npz", 1, jax.device_get(new_cache))
+np.savez(f"{out}/ref_decode.npz", tok=np.asarray(tok),
+         logits=np.asarray(logits, np.float32))
+print("REF_OK")
+"""
+
+
+def _run_reference(prog: str, out: str) -> None:
+    pytest.importorskip("jax")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "JAX_PLATFORMS": "cpu"}
+    r = subprocess.run([sys.executable, "-c", prog, out], capture_output=True,
+                       text=True, timeout=TIMEOUT, env=env)
+    assert "REF_OK" in r.stdout, r.stdout + r.stderr[-4000:]
+
+
+# ---------------------------------------------------------------------------
+# The port's runs: this file as a script, one process per rank
+# ---------------------------------------------------------------------------
+def _run_port(case: str, data: int, model: int, out: str) -> None:
+    world = data * model
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, case, str(rank), str(data), str(model),
+         out], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env) for rank in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), logs[0][-4000:] + "".join(
+        log[-2000:] for log in logs[1:] if "Error" in log)
+
+
+def _worker(case, rank, data, model, out):
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{out}/store_{case}",
+                            rank=rank, world_size=data * model)
+    try:
+        CASES[case](rank, data, model, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _full(tree):
+    """Every DTensor of a tree gathered whole (a collective: all ranks)."""
+    from repro_torch.distributed import sharding as shd
+    return shd.tree_map_with_path(
+        lambda _, t: t.full_tensor() if hasattr(t, "full_tensor") else t,
+        tree)
+
+
+def _case_train(rank, data, model, out):
+    import torch
+    from repro_torch.configs.base import InputShape, get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.training import adamw, checkpoint
+    minfo = meshlib.make_host_mesh(data, model)
+    cfg = get_config("smollm_360m", tiny=True).replace(
+        num_heads=4, num_kv_heads=2, head_dim=32, d_model=128, d_ff=256,
+        vocab_size=512, dtype="float32")
+    shape = InputShape("t", 64, 8, "train")
+    _, params, _ = checkpoint.load(f"{out}/ref_train0.npz",
+                                   api.init_params(cfg, device="cpu"))
+    tokens = torch.from_numpy(np.load(f"{out}/ref_train.npz")["tokens"])
+    fn, _, in_sh, _ = steps.make_train_step(cfg, minfo, shape,
+                                            num_microbatches=2)
+    p = shd.distribute_tree(params, in_sh[0], minfo)
+    o = shd.distribute_tree(adamw.init(params), in_sh[1], minfo)
+    b = shd.distribute_tree({"tokens": tokens}, in_sh[2], minfo)
+    p, o, m1 = fn(p, o, b)
+    p, o, m2 = fn(p, o, b)
+    losses = [m["loss"].full_tensor().item() for m in (m1, m2)]
+    full = _full(p)
+    if rank == 0:
+        checkpoint.save(f"{out}/port_train2.npz", 2, full)
+        np.savez(f"{out}/port_train.npz", losses=np.array(losses))
+
+
+def _case_decode(rank, data, model, out):
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.configs.base import InputShape, get_config
+    from repro_torch.distributed import cache_update
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.training import checkpoint
+    minfo = meshlib.make_host_mesh(data, model)
+    B, S = 8, 128
+    shape = InputShape("d", S, B, "decode")
+    ref = np.load(f"{out}/ref_decode.npz")
+    tok = torch.from_numpy(ref["tok"])
+    pos = torch.tensor(S - 1, dtype=torch.int32)
+    results = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = get_config("mixtral_8x22b", tiny=True).replace(dtype=dtype)
+        _, params, cache = checkpoint.load(
+            f"{out}/ref_decode_in.npz", api.init_params(cfg, device="cpu"),
+            api.init_cache(cfg, B, S, device="cpu"))
+        fn, _, in_sh, _ = steps.make_decode_step(cfg, minfo, shape)
+        p = shd.distribute_tree(params, in_sh[0], minfo)
+        c = shd.distribute_tree(cache, in_sh[1], minfo)
+        t = shd.distribute(tok, in_sh[2], minfo)
+        q = shd.distribute(pos, in_sh[3], minfo)
+        logits, c = fn(p, c, t, q)
+        results[dtype] = (logits.full_tensor(), _full(c))
+        # the append alone: the step's deltas, then apply_cache_deltas
+        with steps.implicit_replication():
+            _, deltas = api.decode_step(p, c, t, q, cfg,
+                                        bspec=shd.batch_spec_axes(minfo, B),
+                                        return_deltas=True)
+            with CommDebugMode() as comm:
+                cache_update.apply_cache_deltas(c, deltas, q)
+        if rank == 0 and dtype == "float32":
+            want_logits, want_cache = api.decode_step(params, cache, tok, pos,
+                                                      cfg)
+            results["unsharded"] = (want_logits, want_cache)
+    if rank == 0:
+        flat = {"collectives": np.asarray(comm.get_total_counts())}
+        for name, (lg, cc) in results.items():
+            flat[f"{name}/logits"] = lg.float().numpy()
+            for g, grp in enumerate(cc):
+                for k, v in grp.items():
+                    flat[f"{name}/cache/{g}/{k}"] = v.float().numpy()
+        np.savez(f"{out}/port_decode.npz", **flat)
+
+
+def _case_prefill(rank, data, model, out):
+    from repro_torch.configs.base import InputShape, get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    minfo = meshlib.make_host_mesh(data, model)
+    B, S = 4, 512
+    shape = InputShape("p", S, B, "prefill")
+    flat = {}
+    for impl in ("xla", "pallas"):
+        cfg = get_config("smollm_360m", tiny=True).replace(
+            dtype="float32", kernel_impl=impl)
+        params = api.init_params(cfg, seed=0, device="cpu")
+        batch = api.make_batch(cfg, shape, seed=1, device="cpu")
+        fn, _, in_sh, out_sh = steps.make_prefill_step(cfg, minfo, shape)
+        logits, cache = fn(shd.distribute_tree(params, in_sh[0], minfo),
+                           shd.distribute_tree(batch, in_sh[1], minfo))
+        got = (logits.full_tensor(), _full(cache))
+        if rank == 0:
+            want = api.prefill(params, batch, cfg, capacity=S)
+            flat[f"{impl}/seq_axis"] = np.asarray(
+                steps.prefill_seq_axis(cfg, minfo, shape) or "")
+            for name, (lg, cc) in (("sharded", got), ("unsharded", want)):
+                flat[f"{impl}/{name}/logits"] = lg.numpy()
+                for k in ("k", "v"):
+                    flat[f"{impl}/{name}/{k}"] = cc[0][k].numpy()
+    if rank == 0:
+        np.savez(f"{out}/port_prefill.npz", **flat)
+
+
+def _case_kernel_guard(rank, data, model, out):
+    """The kernel path on a sequence-sharded decode cache raises, and on a
+    data-only mesh it runs the kernels' CPU versions on local shards."""
+    import torch
+    from repro_torch.configs.base import InputShape, get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    minfo = meshlib.make_host_mesh(data, model)
+    B, S = 4, 64
+    shape = InputShape("d", S, B, "decode")
+    cfg = get_config("smollm_360m", tiny=True).replace(
+        dtype="float32", kernel_impl="pallas")
+    params = api.init_params(cfg, seed=0, device="cpu")
+    cache = api.init_cache(cfg, B, S, device="cpu")
+    tok = torch.arange(B, dtype=torch.int32)
+    pos = torch.tensor(5, dtype=torch.int32)
+    fn, _, in_sh, _ = steps.make_decode_step(cfg, minfo, shape)
+    args = (shd.distribute_tree(params, in_sh[0], minfo),
+            shd.distribute_tree(cache, in_sh[1], minfo),
+            shd.distribute(tok, in_sh[2], minfo),
+            shd.distribute(pos, in_sh[3], minfo))
+    try:
+        logits, _ = fn(*args)
+        raised = ""
+        err = (logits.full_tensor() - api.decode_step(
+            params, cache, tok, pos, cfg)[0]).abs().max().item()
+    except NotImplementedError as e:
+        raised, err = str(e), -1.0
+    if rank == 0:
+        np.savez(f"{out}/port_guard_{data}x{model}.npz",
+                 raised=np.asarray(raised), err=np.asarray(err))
+
+
+CASES = {"train": _case_train, "decode": _case_decode,
+         "prefill": _case_prefill, "guard": _case_kernel_guard}
+
+
+# ---------------------------------------------------------------------------
+# The tests
+# ---------------------------------------------------------------------------
+def _leaves(path) -> dict:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files if k.startswith("params/")}
+
+
+def test_sharded_train_step_matches_reference():
+    """(4, 2) mesh, 8 ranks: TINY SmolLM, 2 microbatches, 2 steps."""
+    with tempfile.TemporaryDirectory() as out:
+        _run_reference(REF_TRAIN, out)
+        _run_port("train", 4, 2, out)
+        want = np.load(f"{out}/ref_train.npz")["losses"]
+        got = np.load(f"{out}/port_train.npz")["losses"]
+        np.testing.assert_allclose(got, want, rtol=1e-4)
+        p0 = _leaves(f"{out}/ref_train0.npz")
+        pr, pp = _leaves(f"{out}/ref_train2.npz"), _leaves(
+            f"{out}/port_train2.npz")
+        p8 = _leaves(f"{out}/ref_train2_8x1.npz")
+        assert pr.keys() == pp.keys() == p0.keys() == p8.keys()
+        for k, x0 in p0.items():
+            dj, dt = pr[k] - x0, pp[k] - x0
+            err = np.abs(dt - dj)
+            largest = np.abs(dj).max()
+            # a change is a difference of float32 parameters, each step
+            # rounding the parameter once: two spacings of the parameter
+            # are its resolution (a norm weight near 1.0: 2 x 6e-8, 2e-4 of
+            # a two-step change at lr 3e-4)
+            bound = np.maximum(1e-4 * largest, 2 * np.spacing(np.abs(pr[k])))
+            assert np.quantile(err / bound, 0.999) <= 1.0, k
+            # ... and the reference's own steps on another mesh move an
+            # element at its leaf's gradient noise by more than 1e-2
+            own = np.abs((p8[k] - x0) - dj).max()
+            assert err.max() <= max(1e-2 * largest, own), (k, err.max(), own)
+
+
+def test_sharded_decode_matches_reference_and_appends_without_collectives():
+    """(4, 2) mesh, 8 ranks: TINY Mixtral, B 8, S 128, sharded append (the
+    cache's sequence over 'model')."""
+    with tempfile.TemporaryDirectory() as out:
+        _run_reference(REF_DECODE, out)
+        _run_port("decode", 4, 2, out)
+        got = np.load(f"{out}/port_decode.npz")
+        assert int(got["collectives"]) == 0
+        ref = np.load(f"{out}/ref_decode.npz")
+        np.testing.assert_allclose(got["bfloat16/logits"], ref["logits"],
+                                   atol=5e-2, rtol=5e-2)
+        with np.load(f"{out}/ref_decode_out.npz") as z:
+            for k in z.files:
+                if not k.startswith("opt/"):
+                    continue
+                g, leaf = k.split("/")[1:]
+                np.testing.assert_allclose(
+                    got[f"bfloat16/cache/{g}/{leaf}"], z[k], atol=5e-2,
+                    rtol=5e-2)
+                np.testing.assert_allclose(
+                    got[f"float32/cache/{g}/{leaf}"],
+                    got[f"unsharded/cache/{g}/{leaf}"], atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(got["float32/logits"],
+                                   got["unsharded/logits"], atol=1e-5,
+                                   rtol=1e-5)
+
+
+def test_sequence_parallel_prefill_matches_unsharded():
+    """(2, 2) mesh, 4 ranks: TINY SmolLM (3 heads, 1 KV head: no head TP on
+    'model'), S 512, where the steps' rule shards the q blocks over
+    'model'; the plain path and the kernel path (the kernels' CPU
+    versions, on each rank's rows with their offset)."""
+    with tempfile.TemporaryDirectory() as out:
+        _run_port("prefill", 2, 2, out)
+        got = np.load(f"{out}/port_prefill.npz")
+        for impl in ("xla", "pallas"):
+            assert str(got[f"{impl}/seq_axis"]) == "model"
+            for name in ("logits", "k", "v"):
+                np.testing.assert_allclose(got[f"{impl}/sharded/{name}"],
+                                           got[f"{impl}/unsharded/{name}"],
+                                           atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("mesh", [(2, 2), (4, 1)], ids=["2x2", "4x1"])
+def test_kernel_path_on_local_shards_or_raises(mesh):
+    """A decode cache sharded on its sequence axis (2 x 2) is not each
+    rank's whole attention: the kernel path raises, naming the
+    placements.  On a data-only mesh (4 x 1) it runs on the local shards
+    and agrees with the unsharded step."""
+    with tempfile.TemporaryDirectory() as out:
+        _run_port("guard", *mesh, out)
+        got = np.load(f"{out}/port_guard_{mesh[0]}x{mesh[1]}.npz")
+        if mesh == (2, 2):
+            assert "placements" in str(got["raised"])
+        else:
+            assert str(got["raised"]) == ""
+            assert float(got["err"]) <= 1e-5
+
+
+if __name__ == "__main__":
+    _worker(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+            sys.argv[5])

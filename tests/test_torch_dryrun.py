@@ -1,0 +1,279 @@
+"""The port's dry-run (``repro_torch.launch.dryrun``, ``perf.roofline``,
+``perf.op_analysis`` on DTensors) against the reference's compiled steps.
+
+TINY SmolLM, Mixtral and Mamba2 x train, prefill and decode (64
+positions, batch 8) on a (4, 2) and a data-only (8, 1) mesh: the
+reference compiles each step on 8 host devices on an Auto-axis mesh in a
+subprocess; the port runs each as rank 0 of a ``fake`` group in a
+subprocess of its own per (mesh, arch).  Per-rank argument bytes are
+exact on both meshes (but where the reference's compiled decode drops an
+argument it never reads: the position of an attention-free model, 4
+bytes) and the analytic model FLOPs equal.  Per-rank FLOPs are held
+within 10% on the data-only mesh, where neither partitioner has a choice
+to make on a 'model' axis; on (4, 2) DTensor's propagation splits over
+'model' some work GSPMD replicates there and replicates some it splits,
+so those ratios, and the collective bytes by kind, are printed (run with
+``-s``) and recorded, with no bound.
+
+The full-size ``smollm_360m x decode_32k x single`` record (256 fake
+ranks) has status OK, the reference's keys, and argument bytes equal to
+the sum of local shard bytes under the reference's own specs.
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+ARCHS = ("smollm_360m", "mixtral_8x22b", "mamba2_1p3b")
+KINDS = ("train", "prefill", "decode")
+MESHES = ((4, 2), (8, 1))
+TIMEOUT = 300
+
+REF_PROG = r"""
+import os, sys, json
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import jax
+from jax.sharding import AxisType
+from repro.configs.base import get_config, InputShape
+from repro.distributed.sharding import MeshInfo
+from repro.launch import steps as steps_lib
+from repro.perf import roofline
+out = {}
+for data, model in ((4, 2), (8, 1)):
+    mesh = jax.make_mesh((data, model), ("data", "model"),
+                         axis_types=(AxisType.Auto, AxisType.Auto))
+    minfo = MeshInfo(mesh)
+    for arch in sys.argv[2].split(","):
+        cfg = get_config(arch, tiny=True)
+        for kind in ("train", "prefill", "decode"):
+            shape = InputShape(kind, 64, 8, kind)
+            with mesh:
+                fn, specs, _, _ = steps_lib.make_step(cfg, minfo, shape)
+                compiled = fn.lower(*specs).compile()
+                rl = roofline.analyze(compiled, cfg, shape, 8)
+            mem = compiled.memory_analysis()
+            out[f"{data}x{model}/{arch}/{kind}"] = {
+                "argument_size": mem.argument_size_in_bytes,
+                "flops": rl.flops, "model_flops": rl.model_flops,
+                "coll_bytes": rl.coll_detail["bytes"]}
+json.dump(out, open(sys.argv[1], "w"))
+print("REF_OK")
+"""
+
+
+def _env():
+    return {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+            "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "1"}
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    pytest.importorskip("jax")
+    path = tmp_path_factory.mktemp("dryrun_ref") / "ref.json"
+    r = subprocess.run([sys.executable, "-c", REF_PROG, str(path),
+                        ",".join(ARCHS)], capture_output=True, text=True,
+                       timeout=TIMEOUT, env=_env())
+    assert "REF_OK" in r.stdout, r.stdout + r.stderr[-4000:]
+    return json.loads(path.read_text())
+
+
+def _port(data: int, model: int, arch: str) -> dict:
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "port.json"
+        r = subprocess.run([sys.executable, __file__, str(data), str(model),
+                            arch, str(path)], capture_output=True, text=True,
+                           timeout=TIMEOUT, env=_env())
+        assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
+        return json.loads(path.read_text())
+
+
+def _run_port_case(data: int, model: int, arch: str, path: str) -> None:
+    """One (mesh, arch): its three steps as rank 0 of a fake group."""
+    import torch  # noqa: F401
+    from repro_torch.configs.base import InputShape, get_config
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.perf import roofline
+    torch.set_num_threads(1)
+    dryrun.fake_group(data * model)
+    minfo = make_host_mesh(data, model)
+    cfg = get_config(arch, tiny=True)
+    out = {}
+    for kind in KINDS:
+        shape = InputShape(kind, 64, 8, kind)
+        fn, specs, in_sh, _ = steps.make_step(cfg, minfo, shape)
+        rl = roofline.analyze(fn, dryrun.laid_out(specs, in_sh, minfo), cfg,
+                              shape, data * model)
+        out[kind] = {"argument_size": rl.memory["argument_size"],
+                     "flops": rl.flops, "model_flops": rl.model_flops,
+                     "coll_bytes": rl.coll_detail["bytes"]}
+    Path(path).write_text(json.dumps(out))
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("arch", ARCHS)
+def test_tiny_records_against_reference(reference, arch, mesh):
+    data, model = mesh
+    got = _port(data, model, arch)
+    for kind in KINDS:
+        want = reference[f"{data}x{model}/{arch}/{kind}"]
+        g = got[kind]
+        # XLA drops a parameter its program never reads: an attention-free
+        # decode's position
+        unread = 4 if (kind == "decode" and arch == "mamba2_1p3b") else 0
+        assert g["argument_size"] == want["argument_size"] + unread, \
+            (kind, g["argument_size"], want["argument_size"])
+        assert g["model_flops"] == want["model_flops"], kind
+        ratio = g["flops"] / want["flops"]
+        coll = {k: (g["coll_bytes"][k], want["coll_bytes"][k])
+                for k in g["coll_bytes"]
+                if g["coll_bytes"][k] or want["coll_bytes"][k]}
+        print(f"[dryrun] {data}x{model} {arch} {kind}: per-rank FLOPs "
+              f"{g['flops']:.6g} / reference {want['flops']:.6g} = "
+              f"{ratio:.4f}; collective bytes (port, reference) {coll}")
+        if model == 1:
+            assert abs(ratio - 1.0) <= 0.10, (kind, ratio)
+
+
+def _local_bytes(shape, spec, sizes, itemsize) -> int:
+    n = math.prod(shape)
+    for entry in spec:
+        for a in ((entry,) if isinstance(entry, str) else (entry or ())):
+            n //= sizes[a]
+    return n * itemsize
+
+
+def test_full_size_record_has_the_reference_keys_and_exact_arguments():
+    """``smollm_360m x decode_32k x single`` through the CLI: status OK,
+    the reference's record and roofline keys, and argument bytes equal to
+    the local shard bytes of the reference's own specs."""
+    jax = pytest.importorskip("jax")
+    from jax.sharding import PartitionSpec as P
+    from repro.configs.base import INPUT_SHAPES, get_config
+    from repro.distributed import sharding as jshd
+    from repro.models import api as japi
+    with tempfile.TemporaryDirectory() as tmp:
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "smollm_360m", "--shape", "decode_32k", "--mesh", "single",
+             "--out", tmp], capture_output=True, text=True, timeout=TIMEOUT,
+            env=_env())
+        assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
+        assert "1 OK / 0 SKIP / 0 FAIL" in r.stdout
+        rec = json.loads(
+            (Path(tmp) / "smollm_360m__decode_32k__single.json").read_text())
+    assert rec["status"] == "OK" and rec["chips"] == 256
+    assert {"arch", "shape", "mesh", "variant", "chips", "status", "lower_s",
+            "compile_s", "memory_analysis", "roofline"} <= rec.keys()
+    assert {"argument_size", "output_size", "temp_size", "alias_size",
+            "generated_code_size"} <= rec["memory_analysis"].keys()
+    assert set(rec["roofline"]) == {
+        "flops_per_chip", "hbm_bytes_per_chip", "coll_bytes_per_chip",
+        "chips", "model_flops_global", "t_compute", "t_memory",
+        "t_collective", "dominant", "useful_flops_ratio", "memory_per_chip",
+        "coll_detail", "xla_cost"}
+
+    cfg, shape = get_config("smollm_360m"), INPUT_SHAPES["decode_32k"]
+    B, S = shape.global_batch, shape.seq_len
+    sizes = {"data": 16, "model": 16}
+    minfo = type("M", (), {"axis_sizes": sizes, "model": 16, "data": 16,
+                           "has_pod": False, "batch_axes": ("data",),
+                           "batch_size": 16})()
+    params = japi.param_specs(cfg)
+    cache = jax.eval_shape(lambda: japi.init_cache(cfg, B, S))
+    want = 0
+    for tree, specs in (
+            (params, jshd.param_specs(params, cfg, minfo, "infer")),
+            (cache, jshd.cache_specs_tree(cache, cfg, minfo, B, S))):
+        leaves = jax.tree.leaves(tree)
+        spec_leaves = jax.tree.leaves(specs,
+                                      is_leaf=lambda x: isinstance(x, P))
+        want += sum(_local_bytes(x.shape, s, sizes, x.dtype.itemsize)
+                    for x, s in zip(leaves, spec_leaves))
+    want += _local_bytes((B,), (jshd.batch_spec_axes(minfo, B),), sizes, 4)
+    want += 4                                           # pos, replicated
+    assert rec["memory_analysis"]["argument_size"] == want
+
+
+def test_skip_reasons_equal_reference():
+    """``skip_reason`` of every arch x input shape: the reference's string,
+    long_500k skipped for the full-attention archs only."""
+    pytest.importorskip("jax")
+    prog = ("import json, sys\n"
+            "from repro.configs.base import ARCH_IDS, INPUT_SHAPES, "
+            "get_config\n"
+            "from repro.launch.dryrun import skip_reason\n"
+            "print(json.dumps({f'{a}/{s}': skip_reason(get_config(a), "
+            "INPUT_SHAPES[s]) for a in ARCH_IDS for s in INPUT_SHAPES}))\n")
+    r = subprocess.run([sys.executable, "-c", prog], capture_output=True,
+                       text=True, timeout=TIMEOUT, env=_env())
+    assert r.returncode == 0, r.stderr[-4000:]
+    want = json.loads(r.stdout.strip().splitlines()[-1])
+    from repro_torch.configs.base import ARCH_IDS, INPUT_SHAPES, get_config
+    from repro_torch.launch.dryrun import skip_reason
+    got = {f"{a}/{s}": skip_reason(get_config(a), INPUT_SHAPES[s])
+           for a in ARCH_IDS for s in INPUT_SHAPES}
+    assert got == want
+    assert sum(v is not None for v in got.values()) >= 1
+
+
+def test_plain_op_counts_unchanged_by_the_rank_counting():
+    """A plain program has no collective, and counts what it counted: the
+    TINY decode step's FLOPs equal those of the same step as rank 0 of a
+    one-rank mesh, and its op count is the plain one."""
+    r = subprocess.run([sys.executable, __file__, "plain"],
+                       capture_output=True, text=True, timeout=TIMEOUT,
+                       env=_env())
+    assert r.returncode == 0, r.stderr[-4000:]
+    plain, ranked = json.loads(r.stdout.strip().splitlines()[-1])
+    assert plain["total_coll_bytes"] == 0 and not any(
+        plain["coll_count"].values())
+    assert ranked["flops"] == plain["flops"]
+    assert ranked["total_coll_bytes"] == 0
+
+
+def _plain_case() -> None:
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api
+    from repro_torch.perf.op_analysis import analyze_ops
+    from torch.distributed.tensor.experimental import implicit_replication
+    cfg = get_config("smollm_360m", tiny=True)
+    params = api.init_params(cfg, device="meta")
+    cache = api.init_cache(cfg, 4, 32, device="meta")
+    tok = torch.empty((4,), dtype=torch.int32, device="meta")
+    pos = torch.empty((), dtype=torch.int32, device="meta")
+
+    def step(p, c, t, q):
+        with implicit_replication():
+            return api.decode_step(p, c, t, q, cfg)
+    plain = analyze_ops(step, params, cache, tok, pos)
+    dryrun.fake_group(1)
+    minfo = make_host_mesh(1, 1)
+    rep = shd.to_placements((), minfo.mesh)
+    lay = lambda tree: shd.tree_map_with_path(  # noqa: E731
+        lambda _, t: shd.distribute(t, rep, minfo), tree)
+    ranked = analyze_ops(step, lay(params), lay(cache),
+                         shd.distribute(tok, rep, minfo),
+                         shd.distribute(pos, rep, minfo))
+    keep = ("flops", "total_coll_bytes", "coll_count", "n_ops")
+    print(json.dumps([{k: plain[k] for k in keep},
+                      {k: ranked[k] for k in keep}]))
+
+
+if __name__ == "__main__":
+    if sys.argv[1] == "plain":
+        _plain_case()
+    else:
+        _run_port_case(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                       sys.argv[4])

@@ -54,7 +54,11 @@ def test_port_imports_with_jax_and_reference_blocked():
             "repro_torch.launch.report", "repro_torch.training.adamw",
             "repro_torch.training.data", "repro_torch.training.checkpoint",
             "repro_torch.training.loop", "repro_torch.launch.train",
-            "repro_torch.examples.train_100m"]
+            "repro_torch.examples.train_100m",
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.cache_update",
+            "repro_torch.launch.mesh", "repro_torch.launch.steps",
+            "repro_torch.launch.dryrun"]
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[m] = None\n"
