@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Eleven phases, any failure fatal, all in a temporary autotune store, so a
+Twelve phases, any failure fatal, all in a temporary autotune store, so a
 stale ``.profile_store/`` in the working directory changes nothing:
   1. toolchain: torch / CUDA / nvcc versions, the card, TF32 off;
   2. build the four CUDA kernels from src/repro_torch/kernels/csrc with
@@ -30,8 +30,10 @@ stale ``.profile_store/`` in the working directory changes nothing:
      G 8), Whisper-medium (hd 64, G 1: its bidirectional encoder over
      1500 frames, its decoder's self-attention, its cross-attention at
      prefill through K1 and at decode through K2 over a transposed view of
-     the encoder's cache) and Gemma-2-2B (hd 256, cap 50: K1's CUDA-core
-     body, K2 over a 1,024-position cache), each held against its plain
+     the encoder's cache), Gemma-2-2B (hd 256, cap 50: K1's CUDA-core
+     body, K2 over a 1,024-position cache) and the examples phase's
+     full-width quickstart (K1 at 128 x 32 tokens, hd 64, G 3: a partial q
+     tile), each held against its plain
      version in both dtypes with the body asserted, and timed on the
      device alone beside SDPA with its bound;
   4. model: full-width SmolLM-360M, Mamba2-1.3B, Zamba2-1.2B, InternVL2-2B
@@ -113,7 +115,19 @@ stale ``.profile_store/`` in the working directory changes nothing:
      microbatch step at 1e-4, then 5 bf16 steps at full width timed (2
      also through the composed step); eager host-clock ms of the sharded
      prefill and step beside the unsharded ones; a JSON line;
-  10. autotune: ``serve --autotune``'s tuning of the serving shape classes
+  10. examples (``phase_examples``): ``repro_torch.examples.quickstart``
+     as shipped (TINY) and its ``run`` at full width (SmolLM-360M, bf16,
+     the kernel path, the example's ``(n, 32)`` token batches served by a
+     prefill at capacity 48 under DNNScaler at 8 x the bs=1 latency): every
+     bucket captured before the run, no miss and no stale hit over it, K1
+     32 a replay, all through the wgmma body
+     (``launches_by_path["examples"]``), the largest bucket's logits
+     against the plain path within the model phase's bf16 bound; then,
+     after a throwaway executor captured each bucket once,
+     ``warm_start.serve_once`` cold and warm against one store (a bucket
+     miss a CUDA-graph capture): the warm run strictly fewer probes,
+     captures and stall seconds; a JSON line;
+  11. autotune: ``serve --autotune``'s tuning of the serving shape classes
      (SmolLM-360M prefill, decode and paged decode; Mamba2-1.3B's SSD
      scan), every candidate timed through its kernel on the device alone
      (calls captured in a CUDA graph): the flash kernel at its four wgmma
@@ -123,7 +137,7 @@ stale ``.profile_store/`` in the working directory changes nothing:
      16-byte rule of the tuned flash class takes the CUDA-core body at its
      own tile; then a short SmolLM serving run on the tuned cache with
      zero misses and zero stale hits after warm-up;
-  11. fleet (``phase_fleet``, on the host): the paper's 30-job Table-4
+  12. fleet (``phase_fleet``, on the host): the paper's 30-job Table-4
      fleet as ``serve --cluster`` prices it (``run_paper_cluster`` in
      ``auto`` mode, 12 simulated Tesla P40s, 90 s, seed 0), its aggregate
      printed, run again through ``VectorClusterEngine`` and held equal;
@@ -138,7 +152,8 @@ model before it is freed, and print the card's free memory before its
 init (phase 7 prints it before Gemma-2-2B's); running out of memory fails
 the script.  Prints the kernels' JSON line (each kernel's launches on the
 first served path that reaches it, and by path in ``launches_by_path``,
-the token path's under ``tokens``, the sharded steps' under ``dist``),
+the token path's under ``tokens``, the sharded steps' under ``dist``,
+the full-width quickstart's under ``examples``),
 the card's name and power limit, and
 last the device JSON line.  Exits non-zero without a CUDA device.
 """
@@ -188,6 +203,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan as k4  # noqa: E402
 from repro_torch.distributed import sharding as shd  # noqa: E402
+from repro_torch.examples import quickstart, warm_start  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
@@ -306,6 +322,8 @@ PAGED_VIEW = (3, 512, 6, 2, 64, 32, (512, 200, 0), None, 30.0)
 
 # the serving paths' shapes: 8 prompts of 512 tokens, 32 decode steps
 ARCH, BATCH, PROMPT, STEPS = "smollm_360m", 8, 512, 32
+# the examples phase: quickstart's buckets (bs up to 32 x mtl up to 4)
+QUICK_MAX_ITEMS = 32 * 4
 SSM_ARCH, HYBRID_ARCH = "mamba2_1p3b", "zamba2_1p2b"
 # the vision stub (256 of a prompt's 512 positions are patches) and the
 # encoder-decoder (1500 encoder frames and a 512-token decoder prompt)
@@ -708,18 +726,20 @@ def phase_kernels() -> dict:
 def _family_shapes() -> tuple:
     """The call shapes InternVL2-2B's, Whisper-medium's and
     Qwen3-MoE-30B-A3B's paths give K1 and K2 at 8 x 512 positions and 32
-    steps, and Gemma-2-2B's token path (hd 256, cap 50) at 8 prompts of 512
-    tokens in a cache of ``KV_BUDGET`` positions, by name: K1 cases (B,
-    Tq, Tk, H, KV, hd, causal, window, cap), K2 cases ((B, S, H, KV, hd,
-    pos, window, cap), whether the cache is read through a transposed
-    view)."""
-    vlm, enc, mo, gem = (get_config(a) for a in (VLM_ARCH, ENCDEC_ARCH,
-                                                  MOE_ARCH, TOKEN_ARCH))
+    steps, Gemma-2-2B's token path (hd 256, cap 50) at 8 prompts of 512
+    tokens in a cache of ``KV_BUDGET`` positions, and the examples phase's
+    quickstart (SmolLM-360M) at its largest bucket of ``(n, 32)`` tokens
+    (one partial q tile), by name: K1 cases (B, Tq, Tk, H, KV, hd, causal,
+    window, cap), K2 cases ((B, S, H, KV, hd, pos, window, cap), whether
+    the cache is read through a transposed view)."""
+    vlm, enc, mo, gem, sm = (get_config(a) for a in (
+        VLM_ARCH, ENCDEC_ARCH, MOE_ARCH, TOKEN_ARCH, ARCH))
     S, Se = PROMPT + STEPS, enc.encoder_seq_len
     gv = (vlm.num_heads, vlm.num_kv_heads, vlm.head_dim)
     ge = (enc.num_heads, enc.num_kv_heads, enc.head_dim)
     gm = (mo.num_heads, mo.num_kv_heads, mo.head_dim)
     gg = (gem.num_heads, gem.num_kv_heads, gem.head_dim)
+    gs = (sm.num_heads, sm.num_kv_heads, sm.head_dim)
     cap = gem.attn_logit_softcap
     flash = {
         "internvl2 prefill": (BATCH, PROMPT, PROMPT, *gv, True, None, None),
@@ -729,6 +749,8 @@ def _family_shapes() -> tuple:
         "whisper cross prefill": (BATCH, PROMPT, Se, *ge, False, None, None),
         "qwen3-moe prefill": (BATCH, PROMPT, PROMPT, *gm, True, None, None),
         "gemma2 prefill": (BATCH, PROMPT, PROMPT, *gg, True, None, cap),
+        "quickstart prefill": (QUICK_MAX_ITEMS, quickstart.SEQ,
+                               quickstart.SEQ, *gs, True, None, None),
     }
     decode = {
         "internvl2 decode": ((BATCH, S, *gv, S - 1, None, None), False),
@@ -745,11 +767,12 @@ def phase_family_shapes() -> dict:
     Qwen3-MoE-30B-A3B (hd 128, G 8), Whisper-medium (hd 64, G 1; 1500
     encoder frames, not a multiple of either wgmma tile; non-causal
     encoder and cross-attention; the decode step's cross-attention through
-    a transposed view of the (B, S_enc, KV, hd) cache) and Gemma-2-2B (hd
-    256, G 2, cap 50: K1's CUDA-core body), each held against its plain
-    version in float32 and bfloat16 with the body asserted, then timed in
-    bf16 on the device alone, with its window and cap, beside SDPA at the
-    same shape (which has no cap), with its bound."""
+    a transposed view of the (B, S_enc, KV, hd) cache), Gemma-2-2B (hd
+    256, G 2, cap 50: K1's CUDA-core body) and the full-width quickstart
+    (hd 64, G 3, 128 x 32 positions: a partial q tile), each held against
+    its plain version in float32 and bfloat16 with the body asserted, then
+    timed in bf16 on the device alone, with its window and cap, beside SDPA
+    at the same shape (which has no cap), with its bound."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(19)
     flash, decode = _family_shapes()
@@ -2425,6 +2448,179 @@ def phase_dist() -> dict:
     return s["launches"]
 
 
+@contextlib.contextmanager
+def _warmed_quickstart():
+    """While open, ``quickstart.run``'s executor warms (captures) every
+    bucket its run can reach, largest first as phase 6 does, before the
+    run measures anything, then sets the launch counts to 0 and the bucket
+    cache's counters too; the yielded list holds each executor made and
+    the seconds each bucket's warm-up and capture took."""
+    made = []
+
+    class Warmed(quickstart.RealExecutor):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            seconds = {n: self.warmup(n, 1) for n in sorted(
+                {self.bucket(i) for i in range(1, QUICK_MAX_ITEMS + 1)},
+                reverse=True)}
+            torch.cuda.synchronize()
+            made.append((self, seconds))
+            self.cache_stats.reset_counters()
+            _reset_launches()
+            self.replayed_launches.clear()
+
+    saved, quickstart.RealExecutor = quickstart.RealExecutor, Warmed
+    try:
+        yield made
+    finally:
+        quickstart.RealExecutor = saved
+
+
+def phase_examples() -> dict:
+    """The examples (``repro_torch.examples``) on the card:
+      1. ``quickstart.main(["--device", "cuda"])`` as shipped (TINY
+         SmolLM, its config's plain path), its five lines printed;
+      2. ``quickstart.run`` at full width: SmolLM-360M, bf16, the kernel
+         path, weights from seed 0, the example's own ``(n, 32)`` token
+         batches served by a prefill at capacity 48, DNNScaler at 8 x the
+         bs=1 latency (m 8, n 4, bs up to 32, mtl up to 4), 40 engine
+         steps; every bucket the run can reach captured before it
+         (``_warmed_quickstart``): no miss and no stale hit over the run,
+         no launch outside a graph, K1 32 a replay, all through the wgmma
+         body (each bucket's capture records its launches; counts set to
+         0 just before the run, read just after:
+         ``launches_by_path["examples"]``); the largest bucket's logits,
+         replayed, against the plain path on the card within the model
+         phase's bf16 prefill bound (the larger of 3e-2 and twice the
+         plain path's own floor, here between its default key block,
+         which holds all 32 positions, and 8 blocks of 4, as the model
+         phase takes 8 blocks of 64 of its 512);
+      3. ``warm_start.serve_once`` cold, then warm, against one temporary
+         store on the card (a bucket miss is a CUDA-graph capture), after
+         a throwaway executor captured every bucket once: the warm run
+         takes strictly fewer probes, captures and stall seconds.
+    Prints a JSON line; returns the full-width run's launches."""
+    t_phase = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        quickstart.main(["--device", "cuda"])
+    lines = out.getvalue().splitlines()
+    assert len(lines) == 5 and lines[0].startswith("model: "), lines
+    for line in lines:
+        print(f"[examples] quickstart (TINY, as shipped): {line}")
+    t_tiny = time.perf_counter() - t_phase
+
+    cfg = get_config(ARCH).replace(kernel_impl="pallas")
+    t0 = time.perf_counter()
+    with _warmed_quickstart() as made, contextlib.redirect_stdout(out):
+        res = quickstart.run(cfg, DEV)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    (ex, bucket_s), = made
+    eager = kernels.launch_counts()
+    assert not any(eager.values()), ("launches outside the graphs", eager)
+    replayed = ex.replayed_launches
+    per_bucket = {n: e.launches for n, e in sorted(ex._exec.items())}
+    n_attn = cfg.num_layers
+    for n, got in per_bucket.items():
+        assert got == {"flash": n_attn, "flash/wgmma": n_attn}, (n, got)
+    replays = sum(e.replays for e in ex._exec.values())
+    assert replayed["flash"] == replayed["flash/wgmma"] == n_attn * replays \
+        and replays > 0, (dict(replayed), replays)
+    cs = ex.cache_stats
+    assert cs.misses == 0 and cs.stale_hits == 0, \
+        ("bucket misses or stale hits after warm-up", cs.misses,
+         cs.stale_hits)
+    s = res["summary"]
+    assert s["throughput"] > 0 and math.isfinite(s["p95_s"]), s
+
+    big = max(ex._exec)
+    entry = ex._exec[big]
+    entry.graph.replay()
+    torch.cuda.synchronize()
+    got = entry.out.float().clone()
+    plain = cfg.replace(kernel_impl="xla")
+    want = quickstart.serve_fn_for(plain)(ex.params, entry.batch).float()
+    # the plain path's own rounding floor at 8 key blocks, as the model
+    # phase takes it at 8 x 512 (blocks of 64): one block holds all 32
+    saved = layers.DEFAULT_BLOCK_K
+    layers.DEFAULT_BLOCK_K = quickstart.SEQ // 8
+    try:
+        l8 = quickstart.serve_fn_for(plain)(ex.params, entry.batch).float()
+    finally:
+        layers.DEFAULT_BLOCK_K = saved
+    floor = _maxerr(l8, want)
+    bound = max(3e-2, 2 * floor)
+    err = _maxerr(got, want)
+    peak = want.abs().max().item()
+    assert got.shape == want.shape and torch.isfinite(got).all() \
+        and err <= bound, (got.shape, err, bound, peak)
+    print(f"[examples] quickstart.run {cfg.name} full width bf16, (n, "
+          f"{quickstart.SEQ}) batches at capacity {quickstart.CAPACITY}: "
+          f"{ex.captures} buckets captured before the run, seconds each "
+          f"(warm-up and capture) "
+          f"{ {n: round(x, 3) for n, x in sorted(bucket_s.items())} } "
+          f"({ex.capture_time_s:.1f}s of them capturing); base "
+          f"{res['base_s'] * 1e3:.2f} ms -> SLO "
+          f"{res['slo_s'] * 1e3:.2f} ms; approach {res['approach']}, steady "
+          f"(bs={res['steady'][0]}, mtl={res['steady'][1]}); "
+          f"{s['throughput']:.1f} req/s, p95 {s['p95_s'] * 1e3:.2f} ms, "
+          f"attainment {s['slo_attainment']:.3f}; misses {cs.misses}, stale "
+          f"hits {cs.stale_hits} after warm-up; K1 {replayed['flash']} over "
+          f"{replays} replays ({n_attn} a replay, all wgmma); bucket {big}'s "
+          f"logits max |diff| {err:.3e} against the plain path (bound "
+          f"{bound:.3e}, plain floor {floor:.3e}; largest |logit| "
+          f"{peak:.3f}); run {t_run:.1f}s")
+
+    # one-time capture warm-up: every bucket either run may reach captured
+    # once in a throwaway executor, so that the first capture at a shape
+    # (the allocator's new segments, the GEMM's first call at that shape)
+    # is billed to neither run, and each run's stalls are its captures
+    lab = warm_start.WarmLabExecutor(warm_start.JOB.profile(),
+                                     torch_device=DEV)
+    for n in lab.buckets:
+        lab.warmup(n, 1)
+    del lab
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_warm_") as store:
+        cold = warm_start.serve_once(store, device=DEV)
+        warm = warm_start.serve_once(store, device=DEV)
+    for label, r in (("cold", cold), ("warm", warm)):
+        with contextlib.redirect_stdout(out):
+            warm_start.show(label, r)
+        print(f"[examples] warm_start on the card: "
+              f"{out.getvalue().splitlines()[-1].strip()}; "
+              f"{r['compile_stall_s'] / r['compiles'] * 1e3:.2f} ms a "
+              f"capture")
+    print(f"[examples] warm_start stall seconds warm / cold "
+          f"{warm['compile_stall_s'] / cold['compile_stall_s']:.3f} "
+          f"(captures {warm['compiles']} / {cold['compiles']})")
+    assert warm["loaded_rows"] >= 1 and warm["probes"] < cold["probes"] \
+        and warm["compiles"] < cold["compiles"] \
+        and warm["compile_stall_s"] < cold["compile_stall_s"], (cold, warm)
+    launches = {"flash": replayed["flash"]}
+    rep = {"quickstart_tiny_s": t_tiny,
+           "quickstart": {"bucket_s": bucket_s,
+                          "capture_s": ex.capture_time_s,
+                          "base_ms": res["base_s"] * 1e3,
+                          "slo_ms": res["slo_s"] * 1e3,
+                          "approach": res["approach"],
+                          "steady": list(res["steady"]),
+                          "req_s": s["throughput"], "p95_ms": s["p95_s"] * 1e3,
+                          "attainment": s["slo_attainment"],
+                          "misses": cs.misses, "stale_hits": cs.stale_hits,
+                          "replays": replays, "launches": dict(replayed),
+                          "logits_err": err, "bound": bound, "floor": floor,
+                          "max_abs_logit": peak,
+                          "run_s": t_run},
+           "warm_start": {k: {kk: (list(v) if isinstance(v, tuple) else v)
+                              for kk, v in r.items()}
+                          for k, r in (("cold", cold), ("warm", warm))}}
+    rep["seconds"] = time.perf_counter() - t_phase
+    print(f"[examples] phase {rep['seconds']:.1f}s")
+    print(json.dumps({"examples": rep}))
+    return launches
+
+
 def _tune_classes() -> list:
     """(kernel, dtype, dims) of the serving shape classes at batch 8:
     SmolLM-360M's flash prefill and split-K decode, the paged decode
@@ -2556,7 +2752,7 @@ def phase_autotune() -> int:
     return launches["paged"]
 
 
-# phase 11: the seven models this script serves, traced for the cost
+# phase 12: the seven models this script serves, traced for the cost
 # model's live features at full width
 FLEET_ARCHS = (ARCH, SSM_ARCH, HYBRID_ARCH, VLM_ARCH, ENCDEC_ARCH, MOE_ARCH,
                TOKEN_ARCH)
@@ -2570,7 +2766,7 @@ def _report_json(rep: dict) -> str:
 
 def phase_fleet() -> None:
     """The paper's fleet and the analysis layers, priced on the host as
-    the reference prices them (module docstring, phase 11)."""
+    the reference prices them (module docstring, phase 12)."""
     t = time.perf_counter()
     reps = {}
     for vectorized in (False, True):
@@ -2649,6 +2845,8 @@ def main() -> None:
     mark("train")
     by_path["dist"] = phase_dist()
     mark("dist")
+    by_path["examples"] = phase_examples()
+    mark("examples")
     launches["paged"] = phase_autotune()
     mark("autotune")
     phase_fleet()

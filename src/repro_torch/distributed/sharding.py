@@ -237,6 +237,16 @@ def _leaf_spec(path_names: list, shape: tuple, cfg: ModelConfig,
     return tuple(spec)
 
 
+def resolved_mode(cfg: ModelConfig, minfo: MeshInfo, mode: str) -> str:
+    """``mode`` with 'infer' made 'train' (FSDP + TP) when the TP-sharded
+    params exceed ``HBM_PARAM_BUDGET``, else 'tp': the one choice of
+    ``param_specs`` that depends on the model's size."""
+    if not mode.startswith("infer"):
+        return mode
+    fsdp = cfg.param_count() * 2 / minfo.model > HBM_PARAM_BUDGET
+    return ("train" if fsdp else "tp") + mode[len("infer"):]
+
+
 def param_specs(abstract_params, cfg: ModelConfig, minfo: MeshInfo,
                 mode: str):
     """Spec tree for the params.
@@ -244,13 +254,9 @@ def param_specs(abstract_params, cfg: ModelConfig, minfo: MeshInfo,
     'tp' (TP only — no per-layer all-gathers).  q-TP is on by default; a
     '_noqtp' suffix gives the baseline sharding without it."""
     q_tp = not mode.endswith("_noqtp")
-    base = mode.replace("_qtp", "").replace("_noqtp", "")
+    base = resolved_mode(cfg, minfo, mode).replace("_qtp", "").replace(
+        "_noqtp", "")
     fsdp = base == "train"
-    if base == "infer":
-        tp_bytes = cfg.param_count() * 2 / minfo.model
-        fsdp = tp_bytes > HBM_PARAM_BUDGET
-    elif base == "tp":
-        fsdp = False
     return tree_map_with_path(
         lambda path, leaf: _leaf_spec(_path_names(path), tuple(leaf.shape),
                                       cfg, minfo, fsdp, q_tp=q_tp),

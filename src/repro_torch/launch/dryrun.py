@@ -10,15 +10,19 @@ ranks, this process being rank 0:
     multi-pod:   (2, 16, 16)    ("pod", "data", "model")  512 ranks
 
 The step (``launch/steps.py``) is built on meta tensors laid out by the
-reference's sharding rules and run once as rank 0 (``perf.roofline``):
-its memory (argument, output and alias bytes are the local shards', so
-exact; temp the peak ``MemTracker`` sees over the run) and its roofline
-(FLOPs, device-memory bytes and collective bytes of rank 0's program, by
-``perf.op_analysis``, priced on the card's constants).  ``lower_s`` is
-the time to build the step and lay out its arguments, ``compile_s`` the
-time to run and count it (the reference's lowering and compilation).
-Records land in experiments/dryrun/*.json.  The default kernel path is
-the plain one, as the reference's ``kernel_impl="xla"``.
+reference's sharding rules and run as rank 0 (``perf.roofline``), once
+under the op counter and the memory tracker together: its memory
+(argument, output and alias bytes are the local shards', so exact; temp
+the peak ``MemTracker`` sees over the run) and its roofline (FLOPs,
+device-memory bytes and collective bytes of rank 0's program, by
+``perf.op_analysis``, priced on the card's constants).  Each layer group
+is counted at one to three layers and grown to its depth, as the
+reference compiles a scan body once, and a train step's microbatches at
+three and four (``analyze_step``).  ``lower_s`` is the time to build the
+steps and lay out their arguments, ``compile_s`` the time to run and
+count them (the reference's lowering and compilation).  Records land in
+experiments/dryrun/*.json.  The default kernel path is the plain one, as
+the reference's ``kernel_impl="xla"``.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch ID]
@@ -28,6 +32,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 import traceback
@@ -68,6 +73,201 @@ def laid_out(arg_specs, in_shardings, minfo):
             for a, pl in zip(arg_specs, in_shardings)]
 
 
+# ---------------------------------------------------------------------------
+# Counting each stacked layer group once, as the reference's scan does
+# ---------------------------------------------------------------------------
+def group_depths(cfg) -> tuple:
+    """The layer count of each of ``cfg.layer_groups``."""
+    return tuple(n for _, n in cfg.layer_groups)
+
+
+def at_depths(cfg, depths):
+    """``cfg`` with its layer groups at ``depths``, all else the same."""
+    if cfg.arch_type == "hybrid":
+        new = cfg.replace(num_layers=depths[0] * (cfg.hybrid_attn_every + 1)
+                          + sum(depths[1:]))
+    elif cfg.is_encoder_decoder:
+        new = cfg.replace(encoder_layers=depths[0], num_layers=depths[1])
+    elif cfg.local_global_alternating:
+        new = cfg.replace(num_layers=2 * depths[0])
+    else:
+        new = cfg.replace(num_layers=depths[0])
+    if group_depths(new) != tuple(depths):
+        raise ValueError(f"{cfg.name}: no config has groups {depths}")
+    return new
+
+
+def _numbers(rl: roofline.Roofline) -> dict:
+    """What a record says, as numbers that grow by the same amount with
+    each layer of a group."""
+    out = {"flops": rl.flops, "hbm_bytes": rl.hbm_bytes}
+    for part in ("bytes", "count"):
+        for kind, v in rl.coll_detail[part].items():
+            out[f"coll_{part}/{kind}"] = v
+    for k in ("argument_size", "output_size", "alias_size", "temp_size"):
+        out[k] = rl.memory[k]
+    return out
+
+
+def _record(nums: dict, cfg, shape, chips: int, why=None) -> roofline.Roofline:
+    """The ``Roofline`` of ``_numbers`` ``nums``."""
+    detail = {part: {k.split("/")[1]: v for k, v in nums.items()
+                     if k.startswith(f"coll_{part}/")}
+              for part in ("bytes", "count")}
+    mem = {k: nums[k] for k in ("argument_size", "output_size", "temp_size",
+                                "alias_size")}
+    mem["generated_code_size"] = None
+    if why:
+        mem["temp_reason"] = why
+    per_chip = (mem["temp_size"] or 0.0) + mem["argument_size"] \
+        + mem["output_size"] - mem["alias_size"]
+    return roofline.Roofline(
+        flops=nums["flops"], hbm_bytes=nums["hbm_bytes"],
+        coll_bytes=sum(detail["bytes"].values()), chips=chips,
+        model_flops=roofline.model_flops(cfg, shape), coll_detail=detail,
+        xla_cost=None, memory_per_chip=per_chip, memory=mem)
+
+
+def _fixed_choices(cfg, minfo, shape, step_kwargs: dict) -> dict:
+    """The step's choices that depend on the model's size, made for the
+    whole model: the train step's microbatch count, the inference
+    params' FSDP."""
+    kw = dict(step_kwargs)
+    if shape.kind == "train":
+        kw.setdefault("num_microbatches",
+                      steps_lib.default_microbatches(cfg, shape, minfo))
+    else:
+        kw["param_mode"] = shd.resolved_mode(
+            cfg, minfo, kw.get("param_mode", "infer"))
+    return kw
+
+
+def _same_layout(cfg, minfo, shape, kw: dict, depths: tuple) -> bool:
+    """Whether ``cfg``'s step at ``depths`` lays every argument out as the
+    whole model's step does (the FSDP rule may pick a layer axis)."""
+    def layout(c):
+        return repr(steps_lib.make_step(c, minfo, shape, **kw)[2])
+    return layout(cfg) == layout(at_depths(cfg, depths))
+
+
+def analyze_step(cfg, minfo, shape, chips: int, *, fast: bool = True,
+                 **step_kwargs) -> tuple:
+    """(the step's ``Roofline``, seconds building steps, seconds running
+    them).  ``fast=False`` runs the whole step op by op.
+
+    ``fast``: every layer of a group is one program at one shape, as the
+    reference's scan body is, so the record is the step's with every
+    group at one layer, plus each group's growth: that group run at 2
+    and 3 layers (the others at one) gives one more layer's FLOPs, bytes,
+    collectives and argument / output / alias bytes, the same for every
+    layer past the first, and the whole group adds that for each of its
+    layers past the third.  The temp bytes are a peak over the run: each
+    phase of the step (``roofline.PhaseMarks``: a layer group; a train
+    step's gathering, forward, backward, accumulation, reduction, update)
+    has its own peak, which grows by its own amount with each layer, and
+    the record's is the largest of the phases' peaks so grown.
+
+    A train step's microbatches are one program too: from the third on,
+    each holds what the one before held and adds what it added.  So a
+    step of more than four is grown as above at three microbatches and at
+    four, and each microbatch past the fourth adds their difference to
+    every number; each phase's peak (a phase of the third microbatch
+    stands for the same phase of every later one) grows by its own
+    difference.
+
+    The choices that depend on the model's size are made for the whole
+    model, and the whole step's argument layout must equal the shallow
+    ones' leaf for leaf (the FSDP rule may pick a layer axis), else the
+    whole step runs.  So does a step that has no more layers and
+    microbatches than the probes run (Zamba2's six super-blocks and two
+    Mamba blocks, at prefill)."""
+    timing = [0.0, 0.0]
+
+    def run(c, shp, kw):
+        t0 = time.time()
+        marks = roofline.PhaseMarks()
+        fn, arg_specs, in_sh, _ = steps_lib.make_step(c, minfo, shp,
+                                                      mark=marks, **kw)
+        args = laid_out(arg_specs, in_sh, minfo)
+        t1 = time.time()
+        rl = roofline.analyze(fn, args, c, shp, chips, marks)
+        timing[0] += t1 - t0
+        timing[1] += time.time() - t1
+        return rl
+
+    full = group_depths(cfg)
+    one = tuple(min(n, 1) for n in full)
+    kw = _fixed_choices(cfg, minfo, shape, step_kwargs)
+    nm = kw.get("num_microbatches", 1)
+    per = shape.global_batch // nm
+    counts = (3, 4) if nm > 4 and all(
+        shd.batch_spec_axes(minfo, per * m)
+        == shd.batch_spec_axes(minfo, shape.global_batch) for m in (3, 4)) \
+        else (nm,)
+    # layers run: the base, then each group at 2 and 3 layers
+    probes = sum(one) + sum(sum(one) - 1 + d for n in full
+                            for d in range(2, min(n, 3) + 1))
+    if not fast or probes * sum(counts) >= sum(full) * nm \
+            or not _same_layout(cfg, minfo, shape, kw, one):
+        return run(cfg, shape, step_kwargs), *timing
+    grown = []
+    for m in counts:
+        shp = dataclasses.replace(shape, global_batch=per * m)
+        grown.append(_grown(cfg, one, full, lambda c: run(
+            c, shp, {**kw, "num_microbatches": m} if m != nm else kw)))
+    (total, peaks, why), = grown[-1:]
+    if len(grown) == 2:
+        (lo, lo_peaks, _), m = grown[0], counts[-1]
+        total = {k: None if v is None or lo[k] is None
+                 else v + (nm - m) * (v - lo[k]) for k, v in total.items()}
+        peaks = peaks and lo_peaks and _microbatch_peaks(lo_peaks, peaks,
+                                                         nm - m)
+    if peaks:
+        total["temp_size"] = float(max(peaks.values()))
+    return _record(total, cfg, shape, chips, why), *timing
+
+
+def _microbatch_peaks(lo: dict, hi: dict, more: int) -> dict:
+    """Each phase's peak with ``more`` microbatches past ``hi``'s, from
+    ``lo`` and ``hi`` (one microbatch fewer): every phase both hold grows
+    by its difference; ``hi``'s last microbatch holds what the one before
+    held, so it adds no phase of its own."""
+    return {k: v + more * (v - lo[k]) for k, v in hi.items() if k in lo}
+
+
+def _grown(cfg, one: tuple, full: tuple, run) -> tuple:
+    """(``_numbers`` of ``cfg``'s step with every group grown to ``full``
+    layers from ``run``s at ``one`` and each group at 2 and 3, each
+    phase's grown peak by its key (or None), why a temp is missing)."""
+    r0 = run(at_depths(cfg, one))
+    n0, p0 = _numbers(r0), r0.phase_peaks
+    total, peaks = dict(n0), dict(p0) if p0 else None
+    for g, n in enumerate(full):
+        if n == 1:
+            continue
+        seen = {1: (n0, p0)}
+        for d in range(2, min(n, 3) + 1):
+            depths = list(one)
+            depths[g] = d
+            r = run(at_depths(cfg, tuple(depths)))
+            seen[d] = (_numbers(r), r.phase_peaks)
+        d = min(n, 3)
+        (last, lp), (prev, pp) = seen[d], seen[d - 1]
+        for k, v in last.items():
+            if v is None or total[k] is None:
+                total[k] = None
+            else:
+                total[k] += v - n0[k] + (n - d) * (v - prev[k])
+        if peaks is not None and lp and pp and [k for k, _ in lp] \
+                == [k for k, _ in pp] == [k for k, _ in p0]:
+            base, prev = dict(p0), dict(pp)
+            peaks = {k: peaks[k] + v - base[k] + (n - d) * (v - prev[k])
+                     for k, v in lp}
+        else:
+            peaks = None
+    return total, peaks, r0.memory.get("temp_reason")
+
+
 def _save(rec: dict, out_dir: str, variant: str) -> None:
     os.makedirs(out_dir, exist_ok=True)
     suffix = "" if variant == "baseline" else f"__{variant}"
@@ -97,12 +297,9 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
     try:
         fake_group(rec["chips"])
         minfo = make_mesh_info(multi_pod=multi_pod)
-        fn, arg_specs, in_sh, _ = steps_lib.make_step(cfg, minfo, shape,
-                                                      **(step_kwargs or {}))
-        args = laid_out(arg_specs, in_sh, minfo)
-        t_lower = time.time() - t0
-        rl = roofline.analyze(fn, args, cfg, shape, rec["chips"])
-        t_compile = time.time() - t0 - t_lower
+        rl, t_lower, t_compile = analyze_step(cfg, minfo, shape,
+                                              rec["chips"],
+                                              **(step_kwargs or {}))
         rec.update({
             "status": "OK",
             "lower_s": round(t_lower, 1),

@@ -25,6 +25,7 @@ from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.distributed import cache_update, is_dtensor
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import api
+from repro_torch.models.layers import marked
 from repro_torch.training import adamw
 from repro_torch.training.loop import loss_and_grads
 
@@ -76,23 +77,27 @@ def _device(t) -> torch.device:
     return t.to_local().device if is_dtensor(t) else t.device
 
 
-def microbatches(batch: dict, nm: int, minfo: shd.MeshInfo, bspec) -> list:
+def microbatches(batch: dict, nm: int, minfo: shd.MeshInfo, bspec):
     """``nm`` microbatches of ``batch``, the reference's: microbatch i is
     the global rows ``[i*B/nm, (i+1)*B/nm)`` (its reshape to (nm, B/nm,
     ...)), laid out over ``bspec``.  A sharded batch is gathered first
     (token ids: a few bytes a position) and each microbatch taken from
-    it, each rank keeping its own slice."""
-    def split(t):
+    it as the step reaches it, each rank keeping its own slice."""
+    for t in batch.values():
         if t.shape[0] % nm:
             raise ValueError(f"a batch of {t.shape[0]} does not split into "
                              f"{nm} microbatches")
-        if not is_dtensor(t):
-            return list(t.chunk(nm))
-        pl = shd.to_placements((bspec,) + (None,) * (t.ndim - 1), minfo.mesh)
-        return [shd.distribute(part, pl, minfo)
-                for part in t.full_tensor().chunk(nm)]
-    cols = {k: split(v) for k, v in batch.items()}
-    return [{k: v[i] for k, v in cols.items()} for i in range(nm)]
+    whole = {k: t.full_tensor() if is_dtensor(t) else t
+             for k, t in batch.items()}
+    for i in range(nm):
+        mb = {}
+        for k, t in whole.items():
+            part = t.chunk(nm)[i]
+            if is_dtensor(batch[k]):
+                part = shd.distribute(part, shd.to_placements(
+                    (bspec,) + (None,) * (t.ndim - 1), minfo.mesh), minfo)
+            mb[k] = part
+        yield mb
 
 
 # ---------------------------------------------------------------------------
@@ -101,11 +106,13 @@ def microbatches(batch: dict, nm: int, minfo: shd.MeshInfo, bspec) -> list:
 def make_train_step(cfg: ModelConfig, minfo: shd.MeshInfo, shape: InputShape,
                     *, num_microbatches: Optional[int] = None,
                     lr: float = 3e-4, remat: bool = True,
-                    param_mode: str = "train"):
+                    param_mode: str = "train", mark=None):
     """``fn(params, opt_state, batch) -> (params, opt_state, {'loss',
     'grad_norm'})``: the gradients of ``nm`` microbatches summed in
     float32, each divided by ``nm``, laid out as the params, then
-    ``adamw.update``."""
+    ``adamw.update``.  ``mark``: entered around each phase of the step
+    (gathering, forward, backward, accumulation, reduction, update; each
+    layer group: ``layers.marked``), as the dry-run takes them apart."""
     if num_microbatches is None:
         num_microbatches = default_microbatches(cfg, shape, minfo)
     nm = num_microbatches
@@ -122,16 +129,20 @@ def make_train_step(cfg: ModelConfig, minfo: shd.MeshInfo, shape: InputShape,
         with implicit_replication(), torch.enable_grad():
             grads, loss = None, 0.0
             for mb in microbatches(batch, nm, minfo, bspec):
-                mb_loss, _, g = loss_and_grads(gathered(params, minfo), mb,
-                                               cfg, remat=remat, bspec=bspec)
-                g = adamw.tree_map(lambda t: t.float() / nm, g)
-                grads = g if grads is None else adamw.tree_map(
-                    torch.add, grads, g)
-                loss = loss + mb_loss / nm
-            # keep grads sharded like params
-            grads = shd.distribute_tree(grads, p_sh, minfo)
-            new_params, new_opt, gnorm = adamw.update(grads, opt_state,
-                                                      params, lr=lr)
+                with marked(mark, "gather"):
+                    full = gathered(params, minfo)
+                mb_loss, _, g = loss_and_grads(full, mb, cfg, remat=remat,
+                                               bspec=bspec, mark=mark)
+                with marked(mark, "accumulate"):
+                    g = adamw.tree_map(lambda t: t.float() / nm, g)
+                    grads = g if grads is None else adamw.tree_map(
+                        torch.add, grads, g)
+                    loss = loss + mb_loss / nm
+            with marked(mark, "reduce"):  # keep grads sharded like params
+                grads = shd.distribute_tree(grads, p_sh, minfo)
+            with marked(mark, "update"):
+                new_params, new_opt, gnorm = adamw.update(grads, opt_state,
+                                                          params, lr=lr)
             metrics = {"loss": shd.distribute(loss, rep, minfo),
                        "grad_norm": shd.distribute(gnorm, rep, minfo)}
         return new_params, new_opt, metrics
@@ -161,14 +172,15 @@ def prefill_seq_axis(cfg: ModelConfig, minfo: shd.MeshInfo,
 
 
 def make_prefill_step(cfg: ModelConfig, minfo: shd.MeshInfo,
-                      shape: InputShape, *, capacity: Optional[int] = None):
+                      shape: InputShape, *, capacity: Optional[int] = None,
+                      param_mode: str = "infer", mark=None):
     """``fn(params, batch) -> (last logits, cache)``: the cache made as
     zeros laid out by the reference's cache specs, each rank allocating
-    its own shard, and filled in place."""
+    its own shard, and filled in place.  ``mark`` as the train step's."""
     capacity = capacity or shape.seq_len
     B = shape.global_batch
     abstract_params = api.param_specs(cfg)
-    p_specs = shd.param_specs(abstract_params, cfg, minfo, "infer")
+    p_specs = shd.param_specs(abstract_params, cfg, minfo, param_mode)
     batch_abs = api.batch_specs(cfg, shape)
     b_specs = shd.batch_input_specs(batch_abs, minfo)
     cache_abs = api.init_cache(cfg, B, capacity, device="meta")
@@ -185,7 +197,7 @@ def make_prefill_step(cfg: ModelConfig, minfo: shd.MeshInfo,
             logits, cache = api.prefill(gathered(params, minfo), batch, cfg,
                                         capacity,
                                         bspec=bspec, seq_axis=seq_axis,
-                                        cache=cache)
+                                        cache=cache, mark=mark)
             return shd.distribute(logits, logits_sh, minfo), cache
 
     in_shardings = (shd.to_shardings(p_specs, minfo),
@@ -199,14 +211,16 @@ def make_prefill_step(cfg: ModelConfig, minfo: shd.MeshInfo,
 # ---------------------------------------------------------------------------
 def make_decode_step(cfg: ModelConfig, minfo: shd.MeshInfo,
                      shape: InputShape, *, windowed_cache: bool = False,
-                     param_mode: str = "infer", sharded_append: bool = True):
+                     param_mode: str = "infer", sharded_append: bool = True,
+                     mark=None):
     """``fn(params, cache, tokens, pos) -> (logits, cache)``, the cache
     written in place.  windowed_cache / param_mode='tp' are the
     reference's beyond-baseline variants: ring-buffer caches for
     sliding-window layers, and TP-only inference params.
     ``sharded_append``: the decode step leaves the cache unwritten and
     returns the new tokens' deltas, which ``cache_update`` appends into
-    each rank's own shard (zero collectives)."""
+    each rank's own shard (zero collectives).  ``mark`` as the train
+    step's (each layer group, the append)."""
     B, S = shape.global_batch, shape.seq_len
     abstract_params = api.param_specs(cfg)
     p_specs = shd.param_specs(abstract_params, cfg, minfo, param_mode)
@@ -226,13 +240,15 @@ def make_decode_step(cfg: ModelConfig, minfo: shd.MeshInfo,
             if not sharded_append:
                 logits, cache = api.decode_step(params, cache, tokens, pos,
                                                 cfg, windowed=windowed_cache,
-                                                bspec=bspec)
+                                                bspec=bspec, mark=mark)
             else:
                 logits, deltas = api.decode_step(params, cache, tokens, pos,
                                                  cfg, windowed=windowed_cache,
                                                  bspec=bspec,
-                                                 return_deltas=True)
-                cache_update.apply_cache_deltas(cache, deltas, pos)
+                                                 return_deltas=True,
+                                                 mark=mark)
+                with marked(mark, "append"):
+                    cache_update.apply_cache_deltas(cache, deltas, pos)
             return shd.distribute(logits, logits_sh, minfo), cache
 
     in_shardings = (shd.to_shardings(p_specs, minfo), c_sh, tok_sh,

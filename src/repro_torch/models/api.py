@@ -70,17 +70,23 @@ def _given(**kw) -> dict:
     return {k: v for k, v in kw.items() if v is not None and v is not False}
 
 
+def _marks(cfg: ModelConfig, mark) -> dict:
+    """``mark`` for the decoder-only models, which enter it around each
+    layer group (``layers.marked``); the encoder-decoder marks none."""
+    return {} if cfg.is_encoder_decoder else _given(mark=mark)
+
+
 def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True,
-               bspec=None):
+               bspec=None, mark=None):
     """Next-token loss of ``batch`` (the reference's ``train_loss``),
     differentiable by ``torch.autograd``; takes no kernel.  ``bspec``:
     the mesh axes the activations' batch is constrained to."""
     return _model(cfg).train_loss(params, batch, cfg, remat=remat,
-                                  **_given(bspec=bspec))
+                                  **_given(bspec=bspec), **_marks(cfg, mark))
 
 
 def prefill(params, batch, cfg: ModelConfig, capacity: int, bspec=None,
-            seq_axis=None, cache=None):
+            seq_axis=None, cache=None, mark=None):
     """``cache``: a zero cache to fill in place (a mesh's DTensors); the
     encoder-decoder takes no ``seq_axis``, as the reference's."""
     if cfg.is_encoder_decoder:
@@ -88,19 +94,20 @@ def prefill(params, batch, cfg: ModelConfig, capacity: int, bspec=None,
                               **_given(bspec=bspec, cache=cache))
     return transformer.prefill(params, batch, cfg, capacity,
                                **_given(bspec=bspec, seq_axis=seq_axis,
-                                        cache=cache))
+                                        cache=cache, mark=mark))
 
 
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
                 windowed: bool = False, bspec=None,
-                return_deltas: bool = False):
+                return_deltas: bool = False, mark=None):
     """``return_deltas``: the cache is left unwritten and the second
     result is the reference's deltas (``transformer.run_group_decode``)."""
     kw = _given(bspec=bspec, return_deltas=return_deltas)
     if cfg.is_encoder_decoder:
         return encdec.decode_step(params, cache, tokens, pos, cfg, **kw)
     return transformer.decode_step(params, cache, tokens, pos, cfg,
-                                   windowed=windowed, **kw)
+                                   windowed=windowed, **kw,
+                                   **_marks(cfg, mark))
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,

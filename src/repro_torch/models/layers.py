@@ -17,6 +17,7 @@ DTensor cannot view as a partitioner can (``splittable``, ``evenly``,
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -83,6 +84,14 @@ def init_mlp(gen, cfg, prefix, dt, device) -> dict:
 # ---------------------------------------------------------------------------
 # Distributed tensors: the batch constraint, and the kernels on local shards
 # ---------------------------------------------------------------------------
+def marked(mark, name: str):
+    """``mark(name)``: a step's marker of its phase ``name`` (a layer
+    group, a train step's forward or backward), which the dry-run passes
+    to take each phase's memory peak apart (``perf.roofline.PhaseMarks``);
+    nothing where ``mark`` is None."""
+    return contextlib.nullcontext() if mark is None else mark(name)
+
+
 def constrain_batch(x: torch.Tensor, bspec) -> torch.Tensor:
     """Lay a DTensor activation out with its leading (batch) axis over the
     mesh axes ``bspec`` and every other axis whole, as the reference's
@@ -528,14 +537,18 @@ def unflatten_last(y: torch.Tensor, sizes: tuple) -> torch.Tensor:
 
 class _SafeView(torch.autograd.Function):
     """A DTensor's ``reshape`` whose backward first lays the gradient out
-    as the forward's result was: DTensor may shard a gradient (a product's
-    weight gradient, an attention output's) on a dim that the view back
-    to the input's shape cannot split evenly."""
+    as the forward's result was (a pending sum's gradient whole): DTensor
+    may shard a gradient (a product's weight gradient, an attention
+    output's) on a dim that the view back to the input's shape cannot
+    split evenly."""
 
     @staticmethod
     def forward(ctx, w, shape):
+        from torch.distributed.tensor import Replicate
         out = w.reshape(shape)
-        ctx.w_shape, ctx.layout = w.shape, tuple(out.placements)
+        ctx.w_shape = w.shape
+        ctx.layout = tuple(Replicate() if p.is_partial() else p
+                           for p in out.placements)
         return out
 
     @staticmethod
@@ -549,10 +562,20 @@ def safe_view(t: torch.Tensor, shape: tuple) -> torch.Tensor:
     return _SafeView.apply(t, shape) if is_dtensor(t) else t.reshape(shape)
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` whose backward takes the result's gradient as the result
+    was laid out (``_SafeView``): DTensor may hand a product a gradient
+    sharded on the flattened (batch x time) rows, or unevenly over them,
+    which the product's backward cannot view back to ``x``'s shape."""
+    y = x @ w
+    return _SafeView.apply(y, y.shape) if (is_dtensor(y)
+                                           and y.requires_grad) else y
+
+
 def _proj_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum('btd,dhx->bthx') as one matrix product."""
     d, h, hx = w.shape
-    return unflatten_last(x @ safe_view(w, (d, h * hx)), (h, hx))
+    return unflatten_last(matmul(x, safe_view(w, (d, h * hx))), (h, hx))
 
 
 def qkv_proj(p: dict, x: torch.Tensor, cfg):
@@ -569,7 +592,7 @@ def qkv_proj(p: dict, x: torch.Tensor, cfg):
 def _proj_out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum('bthx,hxd->btd') as one matrix product."""
     h, hx, d = w.shape
-    return o.flatten(-2) @ safe_view(w, (h * hx, d))
+    return matmul(o.flatten(-2), safe_view(w, (h * hx, d)))
 
 
 def attn_block_apply(
@@ -749,7 +772,7 @@ def encode_kv(p: dict, enc_out: torch.Tensor, cfg) -> dict:
 # ---------------------------------------------------------------------------
 def mlp_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
-    y = (F.silu(h @ p["wg"]) * (h @ p["wi"])) @ p["wo"]
+    y = matmul(F.silu(matmul(h, p["wg"])) * matmul(h, p["wi"]), p["wo"])
     if cfg.post_block_norm:
         y = rmsnorm(y, p["post_norm"], cfg.norm_eps)
     return x + y

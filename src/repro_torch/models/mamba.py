@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import torch_dtype
 from repro_torch.distributed import is_dtensor
 from repro_torch.models.layers import (from_local, keep_layout,
-                                       local_shards, rmsnorm)
+                                       local_shards, matmul, rmsnorm)
 
 
 def dims(cfg):
@@ -157,7 +157,7 @@ def mamba_block_apply(p: dict, x: torch.Tensor, cfg, *,
     B, T, d = x.shape
     d_in, H, P, N = dims(cfg)
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
-    proj = h @ p["in_proj"]
+    proj = matmul(h, p["in_proj"])
     z, xBC, dt_raw = _split_proj(proj, cfg)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])          # (B,T,H)
     A = -torch.exp(p["A_log"])                              # (H,)
@@ -191,7 +191,7 @@ def mamba_block_apply(p: dict, x: torch.Tensor, cfg, *,
     y = y + xs * p["D"][:, None].to(x.dtype)
     y = y.reshape(B, T, d_in)
     y = rmsnorm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    out = keep_layout(x + y @ p["out_proj"], x)
+    out = keep_layout(x + matmul(y, p["out_proj"]), x)
     if mode == "train":
         return out, None
     return out, {"ssm": new_ssm, "conv": new_conv}

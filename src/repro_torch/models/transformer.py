@@ -494,23 +494,28 @@ def chunked_ce_loss(params, h, labels, mask, cfg, chunk: int = 512):
 # ---------------------------------------------------------------------------
 # Public entry points
 # ---------------------------------------------------------------------------
-def forward_full(params, x, cfg, *, positions, remat=False, bspec=None):
+def forward_full(params, x, cfg, *, positions, remat=False, bspec=None,
+                 mark=None):
     """Train-mode trunk: groups -> final norm.  Returns (h, the MoE aux
-    loss summed over layers, a float32 scalar)."""
+    loss summed over layers, a float32 scalar).  ``mark``: entered around
+    each group (``layers.marked``)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for gp, (kind, _) in zip(params["groups"], cfg.layer_groups):
-        x, aux = run_group_train(gp, x, cfg, kind, positions=positions,
-                                 remat=remat, bspec=bspec)
+    for i, (gp, (kind, _)) in enumerate(zip(params["groups"],
+                                            cfg.layer_groups)):
+        with L.marked(mark, f"group{i}"):
+            x, aux = run_group_train(gp, x, cfg, kind, positions=positions,
+                                     remat=remat, bspec=bspec)
         aux_total = aux_total + aux
     return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux_total
 
 
-def train_loss(params, batch, cfg, *, remat=True, bspec=None):
+def train_loss(params, batch, cfg, *, remat=True, bspec=None, mark=None):
     """batch: {'tokens': (B, T) int, optional 'patch_embeds': (B, P, d)}.
     Next-token cross-entropy over the text positions (the last one
     masked), plus ``router_aux_loss_coef`` x the MoE aux loss.  Returns
     (loss, {'ce', 'aux'}).  ``bspec``: the mesh axes the activations'
-    batch is constrained to (``layers.constrain_batch``)."""
+    batch is constrained to (``layers.constrain_batch``); ``mark`` as
+    ``forward_full``'s."""
     tokens = batch["tokens"]
     x = L.constrain_batch(embed_tokens(params, tokens, cfg,
                                        patch_embeds=batch.get("patch_embeds")),
@@ -518,7 +523,7 @@ def train_loss(params, batch, cfg, *, remat=True, bspec=None):
     T = x.shape[1]
     positions = torch.arange(T, device=x.device)
     h, aux = forward_full(params, x, cfg, positions=positions, remat=remat,
-                          bspec=bspec)
+                          bspec=bspec, mark=mark)
     h_text = L.constrain_batch(h[:, T - tokens.shape[1]:], bspec)
     ce = chunked_ce_loss(params, h_text, *next_token_targets(tokens), cfg)
     loss = ce + cfg.router_aux_loss_coef * aux
@@ -526,13 +531,13 @@ def train_loss(params, batch, cfg, *, remat=True, bspec=None):
 
 
 def prefill(params, batch, cfg, capacity: int, bspec=None, seq_axis=None,
-            cache=None):
+            cache=None, mark=None):
     """Returns (last_logits (B,V) f32, cache) with cache capacity ``capacity``.
     batch: {'tokens': (B, T) int, optional 'patch_embeds': (B, P, d)}; the
     cache then holds P + T positions.  ``cache``: a zero cache to fill in
     place (under a mesh, DTensors laid out by the steps' cache specs);
     None allocates a plain one.  ``bspec`` and ``seq_axis`` as the
-    reference's."""
+    reference's; ``mark`` as ``forward_full``'s."""
     x = L.constrain_batch(embed_tokens(params, batch["tokens"], cfg,
                                        patch_embeds=batch.get("patch_embeds")),
                           bspec)
@@ -540,27 +545,33 @@ def prefill(params, batch, cfg, capacity: int, bspec=None, seq_axis=None,
     positions = torch.arange(T, device=x.device)
     if cache is None:
         cache = init_cache(cfg, B, capacity, device=x.device)
-    for gp, c, (kind, _) in zip(params["groups"], cache, cfg.layer_groups):
-        x, _ = run_group_prefill(gp, x, cfg, kind, c, positions=positions,
-                                 seq_axis=seq_axis, bspec=bspec)
+    for i, (gp, c, (kind, _)) in enumerate(zip(params["groups"], cache,
+                                               cfg.layer_groups)):
+        with L.marked(mark, f"group{i}"):
+            x, _ = run_group_prefill(gp, x, cfg, kind, c,
+                                     positions=positions, seq_axis=seq_axis,
+                                     bspec=bspec)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return logits_last(params, x[:, -1], cfg), cache
 
 
 def decode_step(params, cache, tokens, pos, cfg, windowed: bool = False,
-                bspec=None, return_deltas: bool = False):
+                bspec=None, return_deltas: bool = False, mark=None):
     """tokens: (B,) int new token ids; pos: 0-d int tensor slot index.
 
     Returns (logits (B,V) f32, cache).  The cache is updated in place and
     the same list is returned; with ``return_deltas`` it is left
     unwritten and the second result is each group's deltas
-    (``run_group_decode``)."""
+    (``run_group_decode``).  ``mark`` as ``forward_full``'s."""
     x = L.constrain_batch(embed_tokens(params, tokens[:, None], cfg), bspec)
     out = []
-    for gp, c, (kind, _) in zip(params["groups"], cache, cfg.layer_groups):
-        x, nc = run_group_decode(gp, x, cfg, kind, c, pos=pos,
-                                 windowed=windowed,
-                                 return_deltas=return_deltas, bspec=bspec)
+    for i, (gp, c, (kind, _)) in enumerate(zip(params["groups"], cache,
+                                               cfg.layer_groups)):
+        with L.marked(mark, f"group{i}"):
+            x, nc = run_group_decode(gp, x, cfg, kind, c, pos=pos,
+                                     windowed=windowed,
+                                     return_deltas=return_deltas,
+                                     bspec=bspec)
         out.append(nc)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return logits_last(params, x[:, 0], cfg), (out if return_deltas

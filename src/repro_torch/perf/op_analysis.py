@@ -81,7 +81,10 @@ the count is one rank's program: the counter declines each DTensor op
 (returns ``NotImplemented``), so DTensor dispatches it and the ops it
 runs on the rank's local shards, and the collectives of its
 redistributions, come back through the counter at their local shapes;
-the ops DTensor runs on fake tensors to propagate global shapes are not
+the ops DTensor runs to propagate global shapes and layouts (on fake
+tensors, or through an op's decomposition on meta tensors the first time
+it meets the op at a layout: ``dtensor_propagation_marked``), and those
+it runs on host tensors to lay its meshes out (once a process), are not
 counted.  Such a count has FLOPs, bytes and collectives only: ``n_ops``
 and ``op_hist`` (the cost model's fingerprint of a whole program) are
 None.  A mesh of host devices makes DTensor take an all-gather and a
@@ -486,6 +489,51 @@ def _collective(func) -> Optional[tuple]:
     return "collective-permute", 1, 0
 
 
+_PROPAGATING = [0]     # DTensor's propagation through decompositions, open
+
+
+def propagating() -> bool:
+    """Whether DTensor is propagating a sharding through an op's
+    decomposition (``dtensor_propagation_marked``)."""
+    return _PROPAGATING[0] > 0
+
+
+@contextlib.contextmanager
+def dtensor_propagation_marked():
+    """While open, ``propagating()`` is true inside DTensor's propagation
+    of a sharding through an op's decomposition: the first time DTensor
+    meets an op it has no rule for at an input layout, it runs the
+    decomposition on meta tensors at the global shape to learn the output
+    layout, and caches it.  Those ops are no part of the rank's program,
+    and counting them would make a step's count depend on what ran
+    before it in the process.  Raises where this torch has no such
+    propagation to mark, as a count would then silently change."""
+    try:
+        from torch.distributed.tensor._decompositions import \
+            DecompShardingStrategy as cls
+        orig = cls.__dict__["propagate_strategy"]
+    except (ImportError, KeyError) as e:
+        raise NotImplementedError(
+            f"torch {torch.__version__}: no DTensor propagation through "
+            f"decompositions to mark ({e!r})") from e
+
+    def marked(*a, **k):
+        _PROPAGATING[0] += 1
+        try:
+            return orig(*a, **k)
+        finally:
+            _PROPAGATING[0] -= 1
+    if getattr(orig, "_marks_propagation", False):
+        yield                   # already marked by an enclosing use
+        return
+    marked._marks_propagation = True
+    cls.propagate_strategy = marked
+    try:
+        yield
+    finally:
+        cls.propagate_strategy = orig
+
+
 def _is_fake(leaves) -> bool:
     from torch._subclasses.fake_tensor import FakeTensor
     return any(isinstance(x, FakeTensor) for x in leaves)
@@ -525,11 +573,16 @@ def _meta_key(x):
 
 
 class _OpCounter(TorchDispatchMode):
-    def __init__(self, classes: bool = True):
-        """``classes``: also count each op's HLO opcodes (the histogram);
-        without, only FLOPs, bytes and collectives."""
+    def __init__(self, ranked: bool = False, reuse_meta: bool = True):
+        """``ranked``: one rank's program on DTensors, counted for its
+        FLOPs, bytes and collectives only (no HLO opcodes: the
+        histogram), and not DTensor's own ops on host tensors.
+        ``reuse_meta``: look a repeated functional op's result up instead
+        of running its meta kernel again (``_run``)."""
         super().__init__()
-        self.classes = classes
+        self.ranked = ranked
+        self.classes = not ranked
+        self.reuse_meta = reuse_meta
         # one node per counted op: (opcodes, operand ids, result ids,
         # writes an operand); what reaches no result is dropped at the end
         # as JAX drops dead code before it lowers
@@ -560,7 +613,7 @@ class _OpCounter(TorchDispatchMode):
         self._results: dict = {}
 
     def _run(self, func, args, kwargs):
-        if not _is_functional(func):
+        if not self.reuse_meta or not _is_functional(func):
             return func(*args, **kwargs)
         try:
             key = (func, _meta_key(args), _meta_key(tuple(kwargs.items())))
@@ -670,11 +723,14 @@ class _OpCounter(TorchDispatchMode):
         leaves = _leaves((args, kwargs))
         if any(is_dtensor(x) for x in leaves):
             return NotImplemented   # DTensor runs it; its local ops come back
-        if _is_fake(leaves):
+        if _is_fake(leaves) or propagating():
             return func(*args, **kwargs)    # DTensor's global-shape pass
         out = self._run(func, args, kwargs)
         if _is_fake(_leaves(out)):
             return out
+        if self.ranked and not any(t.device.type == "meta" for t in
+                                   _tensors((args, kwargs, out))):
+            return out      # DTensor's own bookkeeping on the host
         name = _base_name(func)
         coll = _collective(func)
         if coll is not None:
@@ -783,16 +839,19 @@ def _to_meta(x):
     return x
 
 
-def analyze_ops(fn, *args) -> dict:
+def analyze_ops(fn, *args, reuse_meta: bool = True) -> dict:
     """Run ``fn(*args)`` on meta tensors (any tensor argument not on the
     meta device is replaced by an empty meta tensor of its shape and
     dtype) and count what it dispatches.  Returns ``analyze_hlo``'s keys
-    (see the module docstring)."""
+    (see the module docstring).  ``reuse_meta=False`` runs every op's
+    meta kernel, as the program alone would, for a ``MemTracker`` around
+    the count to see the allocations it makes."""
     args = pytree.tree_map(_to_meta, args)
     ranked = any(is_dtensor(t) for t in pytree.tree_leaves(args))
-    counter = _OpCounter(classes=not ranked)
+    counter = _OpCounter(ranked=ranked, reuse_meta=reuse_meta)
     counter.inputs = {id(t) for t in _tensors(args)}
-    with torch.no_grad(), counter, (
+    with torch.no_grad(), (dtensor_propagation_marked() if ranked
+                           else contextlib.nullcontext()), counter, (
             contextlib.nullcontext() if ranked else _Composites(counter)):
         results = fn(*args)
     coll_bytes = {k: float(counter.coll_bytes[k]) for k in _COLLECTIVES}

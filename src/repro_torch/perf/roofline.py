@@ -23,9 +23,12 @@ card: ``BF16_FLOPS``, ``HBM_BPS`` and ``NVLINK_BPS``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 from typing import Optional
+
+import torch
 
 # --- TPU v5e constants, the reference's defaults for bound_time_features ---
 PEAK_FLOPS = 197e12        # bf16 FLOP/s
@@ -94,6 +97,9 @@ class Roofline:
     xla_cost: Optional[dict] = None     # no XLA here: always None
     memory_per_chip: float = 0.0
     memory: Optional[dict] = None       # the record's memory_analysis
+    # ((the mark that opened it, how many times it had), its peak bytes)
+    # of each phase of the run (``_tracked``), in order
+    phase_peaks: Optional[list] = None
 
     @property
     def t_compute(self) -> float:
@@ -139,30 +145,96 @@ class Roofline:
         }
 
 
-def _temp_bytes(fn, args) -> tuple:
-    """(fn's results, the peak bytes it allocates while it runs, or None,
-    and why not).  ``MemTracker`` (``torch.distributed._tools``) over one
-    run on the meta tensors themselves: every tensor the step makes,
-    its results included, at its local shape."""
-    try:
-        from torch.distributed._tools.mem_tracker import MemTracker
-        tracker = MemTracker()
-        with tracker:
-            out = fn(*args)
-        peak = tracker.get_tracker_snapshot("peak")
-        return out, float(sum(v["Total"] for v in peak.values())), None
-    except (ImportError, RuntimeError, TypeError, AttributeError) as e:
-        return fn(*args), None, f"MemTracker failed: {type(e).__name__}: {e}"
+class PhaseMarks:
+    """A step's phase marker (``mark=`` of ``launch/steps.py``'s steps):
+    ``marks(name)`` is entered around each phase of the step (a layer
+    group; a train step's gathering, forward, backward, accumulation,
+    reduction and update; the decode append), and tells ``observer``,
+    while ``analyze`` sets one, where the phase starts (``name``) and
+    ends (``"/" + name``)."""
+
+    def __init__(self):
+        self.observer = None
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        if self.observer:
+            self.observer(name)
+        try:
+            yield
+        finally:
+            if self.observer:
+                self.observer("/" + name)
 
 
-def memory_analysis(fn, args) -> tuple:
-    """(fn's results, the reference's memory_analysis keys): argument,
-    output and alias bytes are this rank's shard bytes of the arguments,
-    the results and the results that are arguments (a cache written in
-    place); temp the peak ``_temp_bytes`` finds."""
+def _make_tracker(device):
+    """A ``MemTracker`` that also keeps the peak on ``device`` of each
+    phase (``next_phase``), and leaves DTensor's propagation through an
+    op's decomposition untracked."""
+    from torch.distributed._tools.mem_tracker import MemTracker
+
+    from repro_torch.perf.op_analysis import propagating
+
+    class Tracker(MemTracker):
+        def __init__(self):
+            super().__init__()
+            self.phases = [[("", 0), 0]]
+            self.seen = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if propagating():
+                return func(*args, **(kwargs or {}))
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+        def _now(self) -> int:
+            return self._curr_mem_snap.get(device, {}).get("Total", 0)
+
+        def next_phase(self, mark: str) -> None:
+            self.seen[mark] = self.seen.get(mark, 0) + 1
+            self.phases.append([(mark, self.seen[mark]), self._now()])
+
+        def _update_peak_stats(self, peak_state) -> None:
+            super()._update_peak_stats(peak_state)
+            self.phases[-1][1] = max(self.phases[-1][1], self._now())
+    return Tracker()
+
+
+def _tracked(run, device, marks: Optional[PhaseMarks] = None) -> tuple:
+    """(``run()``'s value, the peak bytes allocated on ``device`` while it
+    ran and that peak within each phase, or None, and why not).
+    ``MemTracker`` (``torch.distributed._tools``) over the run on the
+    meta tensors themselves: every tensor the step makes, its results
+    included, at its local shape; not the host tensors DTensor makes to
+    lay its meshes out (once a process), nor those of its propagation
+    through an op's decomposition (``op_analysis``).  A phase starts and
+    ends where one of ``marks`` does (the step built with them).  Where
+    the tracker fails, the run is made again without it."""
+    from repro_torch.perf.op_analysis import dtensor_propagation_marked
+    with dtensor_propagation_marked():
+        try:
+            tracker = _make_tracker(device)
+            if marks is not None:
+                marks.observer = tracker.next_phase
+            try:
+                with tracker:
+                    value = run()
+            finally:
+                if marks is not None:
+                    marks.observer = None
+            return (value, float(max(p for _, p in tracker.phases)),
+                    [tuple(p) for p in tracker.phases], None)
+        except (ImportError, RuntimeError, TypeError, AttributeError) as e:
+            return (run(), None, None,
+                    f"MemTracker failed: {type(e).__name__}: {e}")
+
+
+def memory_analysis(args, out, temp, why=None) -> dict:
+    """The reference's memory_analysis keys: argument, output and alias
+    bytes are this rank's shard bytes of the arguments, the results
+    ``out`` and the results that are arguments (a cache written in
+    place); ``temp`` the peak ``_tracked`` found."""
     from repro_torch.distributed.sharding import (local_bytes,
                                                   tree_map_with_path)
-    out, temp, why = _temp_bytes(fn, args)
     ids = set()
     tree_map_with_path(lambda _, t: ids.add(id(t)), list(args))
     aliased = []
@@ -176,16 +248,26 @@ def memory_analysis(fn, args) -> tuple:
            "generated_code_size": None}
     if why:
         mem["temp_reason"] = why
-    return out, mem
+    return mem
 
 
-def analyze(fn, args, cfg, shape, chips: int) -> Roofline:
+def analyze(fn, args, cfg, shape, chips: int,
+            marks: Optional[PhaseMarks] = None) -> Roofline:
     """The roofline of ``fn(*args)`` (one rank's step on meta DTensors):
-    one run for its memory (``memory_analysis``), one counted by
-    ``op_analysis.analyze_ops``."""
+    one run, counted by ``op_analysis.analyze_ops`` under ``MemTracker``
+    (every meta kernel run, as the step alone runs them, so the tracker
+    sees what the step allocates); ``marks``: those the step was built
+    with, for each phase's peak (``phase_peaks``)."""
     from repro_torch.perf.op_analysis import analyze_ops
-    _, mem = memory_analysis(fn, args)
-    h = analyze_ops(fn, *args)
+    results = []
+
+    def step(*a):
+        results.append(fn(*a))
+        return results[-1]
+    h, temp, phases, why = _tracked(
+        lambda: analyze_ops(step, *args, reuse_meta=False),
+        torch.device("meta"), marks)
+    mem = memory_analysis(args, results[-1], temp, why)
     per_chip = (mem["temp_size"] or 0.0) + mem["argument_size"] \
         + mem["output_size"] - mem["alias_size"]
     return Roofline(
@@ -193,7 +275,8 @@ def analyze(fn, args, cfg, shape, chips: int) -> Roofline:
         coll_bytes=h["total_coll_bytes"], chips=chips,
         model_flops=model_flops(cfg, shape),
         coll_detail={"bytes": h["coll_bytes"], "count": h["coll_count"]},
-        xla_cost=None, memory_per_chip=per_chip, memory=mem)
+        xla_cost=None, memory_per_chip=per_chip, memory=mem,
+        phase_peaks=phases)
 
 
 def save_json(path: str, record: dict) -> None:

@@ -14,22 +14,27 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import api
+from repro_torch.models.layers import marked
 from repro_torch.training import adamw, checkpoint
 from repro_torch.training.data import DataConfig, TokenStream
 
 
 def loss_and_grads(params, batch: dict, cfg: ModelConfig, *,
-                   remat: bool = True, bspec=None):
+                   remat: bool = True, bspec=None, mark=None):
     """``jax.value_and_grad`` of ``api.train_loss`` with its metrics:
     returns (loss, {'ce', 'aux'}, grads), the gradients in the parameters'
     tree (zero for a leaf the loss does not reach, such as a cross-
     attention block's unused ``norm``).  ``bspec``: ``train_loss``'s batch
-    constraint (a mesh's DTensors)."""
+    constraint (a mesh's DTensors); ``mark``: entered around the forward,
+    the backward and each layer group (``layers.marked``)."""
     p = adamw.tree_map(lambda t: t.detach().requires_grad_(), params)
     leaves = adamw.tree_leaves(p)
-    loss, metrics = api.train_loss(p, batch, cfg, remat=remat, bspec=bspec)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                materialize_grads=True)
+    with marked(mark, "forward"):
+        loss, metrics = api.train_loss(p, batch, cfg, remat=remat,
+                                       bspec=bspec, mark=mark)
+    with marked(mark, "backward"):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
     by_leaf = {id(t): g for t, g in zip(leaves, grads)}
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             adamw.tree_map(lambda t: by_leaf[id(t)], p))

@@ -18,6 +18,11 @@ so those ratios, and the collective bytes by kind, are printed (run with
 The full-size ``smollm_360m x decode_32k x single`` record (256 fake
 ranks) has status OK, the reference's keys, and argument bytes equal to
 the sum of local shard bytes under the reference's own specs.
+
+The fast path (``dryrun.analyze_step``: each layer group counted at one
+to three layers and grown to its depth, the temp bytes phase by phase)
+gives the whole step's op-by-op record key for key, for every kind of
+layer group in train, prefill and decode, on a (4, 2) mesh.
 """
 
 import json
@@ -140,6 +145,106 @@ def test_tiny_records_against_reference(reference, arch, mesh):
               f"{ratio:.4f}; collective bytes (port, reference) {coll}")
         if model == 1:
             assert abs(ratio - 1.0) <= 0.10, (kind, ratio)
+
+
+# each kind of layer group, TINY but deep enough that every group grows
+# past the fast path's three-layer probes and the probes run fewer layers
+# than the whole step: (arch, layers of each group, a train step's batch).
+# The dense and Mamba2 train steps take 6 microbatches a rank (batch 48),
+# which the fast path probes at 3 and 4; the others 1 (2 for the hybrid).
+# Mamba2 at 9 layers, which the FSDP rule does not shard (at 8 it would
+# shard the layer axis of its 8-head leaves, and the whole step runs).
+GROUP_KINDS = {"dense": ("smollm_360m", (8,), 48),
+               "moe": ("mixtral_8x22b", (8,), 8),
+               "local_global": ("gemma2_2b", (8,), 8),
+               "mamba2": ("mamba2_1p3b", (9,), 48),
+               "zamba2_super": ("zamba2_1p2b", (11, 2), 8),
+               "encoder_decoder": ("whisper_medium", (5, 14), 8)}
+
+
+def _fast_and_full_case(arch: str, depths: str, batch: str,
+                        path: str) -> None:
+    """The fast record and the whole step's op-by-op record of each kind
+    (a train step of ``batch`` rows), rank 0 of a (4, 2) fake group; the
+    fast one first, so nothing it counts comes from a first call the
+    whole step made before it."""
+    import torch
+    from repro_torch.configs.base import InputShape, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.perf import roofline
+    torch.set_num_threads(1)
+    dryrun.fake_group(8)
+    minfo = make_host_mesh(4, 2)
+    cfg = dryrun.at_depths(get_config(arch, tiny=True),
+                           tuple(int(d) for d in depths.split(",")))
+    runs, analyze = [], roofline.analyze
+
+    def counted(fn, args, c, shape, chips, marks):
+        runs.append([*dryrun.group_depths(c), shape.global_batch])
+        return analyze(fn, args, c, shape, chips, marks)
+    roofline.analyze = counted
+    out = {}
+    for kind in KINDS:
+        shape = InputShape(kind, 64, int(batch) if kind == "train" else 8,
+                           kind)
+        for fast in (True, False):
+            runs.clear()
+            rl, *_ = dryrun.analyze_step(cfg, minfo, shape, 8, fast=fast)
+            out[f"{kind}/{'fast' if fast else 'full'}"] = {
+                **rl.to_dict(), "memory_analysis": rl.memory,
+                "depths_run": list(runs)}
+    Path(path).write_text(json.dumps(out))
+
+
+@pytest.fixture(scope="module")
+def fast_and_full(tmp_path_factory):
+    """Every kind's records, one subprocess a kind, all at once."""
+    tmp = tmp_path_factory.mktemp("dryrun_fast")
+    procs = {name: subprocess.Popen(
+        [sys.executable, __file__, "fast", arch,
+         ",".join(map(str, depths)), str(batch), str(tmp / f"{name}.json")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=_env()) for name, (arch, depths, batch) in GROUP_KINDS.items()}
+    out = {}
+    for name, p in procs.items():
+        try:
+            _, err = p.communicate(timeout=TIMEOUT)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        out[name] = (p.returncode, err,
+                     json.loads((tmp / f"{name}.json").read_text())
+                     if p.returncode == 0 else None)
+    return out
+
+
+@pytest.mark.parametrize("name", list(GROUP_KINDS))
+def test_fast_record_equals_the_whole_step_counted(fast_and_full, name):
+    """The fast path (each group counted at 1-3 layers and grown to its
+    depth, a train step's microbatches at 3 and 4 and grown to their
+    count: ``dryrun.analyze_step``) gives the whole step's op-by-op record
+    key for key: FLOPs, device-memory bytes, collective bytes and counts
+    by kind, argument / output / alias / temp bytes, in train, prefill and
+    decode, on a (4, 2) mesh."""
+    rc, err, got = fast_and_full[name]
+    assert rc == 0, err[-4000:]
+    _, depths, train_batch = GROUP_KINDS[name]
+    for kind in KINDS:
+        fast, full = got[f"{kind}/fast"], got[f"{kind}/full"]
+        batch = train_batch if kind == "train" else 8
+        # the fast path ran shallow steps only (a train step of 6
+        # microbatches at 3 and 4 of them), the full path the whole step
+        assert full.pop("depths_run") == [list(depths) + [batch]], kind
+        runs = fast.pop("depths_run")
+        assert all(max(r[:-1]) <= 3 for r in runs), (kind, runs)
+        assert {r[-1] for r in runs} == ({batch // 2, 2 * batch // 3}
+                                         if batch == 48 else {batch}), \
+            (kind, runs)
+        assert fast == full, (kind, {k: (fast[k], full[k]) for k in fast
+                                     if fast[k] != full[k]})
+        assert full["memory_analysis"]["temp_size"] is not None, kind
 
 
 def _local_bytes(shape, spec, sizes, itemsize) -> int:
@@ -274,6 +379,8 @@ def _plain_case() -> None:
 if __name__ == "__main__":
     if sys.argv[1] == "plain":
         _plain_case()
+    elif sys.argv[1] == "fast":
+        _fast_and_full_case(*sys.argv[2:6])
     else:
         _run_port_case(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
                        sys.argv[4])

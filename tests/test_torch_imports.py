@@ -55,6 +55,16 @@ def test_port_imports_with_jax_and_reference_blocked():
             "repro_torch.training.data", "repro_torch.training.checkpoint",
             "repro_torch.training.loop", "repro_torch.launch.train",
             "repro_torch.examples.train_100m",
+            "repro_torch.examples.quickstart",
+            "repro_torch.examples.warm_start",
+            "repro_torch.examples.serve_comparison",
+            "repro_torch.examples.sensitivity",
+            "repro_torch.examples.cluster_serve",
+            "repro_torch.examples.cluster_churn",
+            "repro_torch.examples.partition_serve",
+            "repro_torch.examples.scenario_matrix",
+            "repro_torch.examples.replay_whatif",
+            "repro_torch.examples.disagg_serve",
             "repro_torch.distributed.sharding",
             "repro_torch.distributed.cache_update",
             "repro_torch.launch.mesh", "repro_torch.launch.steps",
