@@ -6,17 +6,20 @@ Twelve phases, any failure fatal, all in a temporary autotune store, so a
 stale ``.profile_store/`` in the working directory changes nothing:
   1. toolchain: torch / CUDA / nvcc versions, the card, TF32 off;
   2. build the four CUDA kernels from src/repro_torch/kernels/csrc with
-     nvcc, one process per source, all started together;
+     nvcc, one process per source, all started together; each wgmma
+     instance of the flash kernel's registers, spills (none allowed) and
+     shared memory;
   3. kernels: each kernel against its plain PyTorch version over the
      reference case lists and the shapes of the serving paths (attention,
      paged attention included: float32 at 2e-5, bfloat16 at 2e-2; SSD
      scan: float32 or bfloat16 x and B/C, x also as a strided slice, at
      2e-3), the split-K decode kernel also at every split length 64-1024
      of a 1,024-key cache, the flash kernel also over cases of its wgmma
-     body (each tile, ragged edges, q_offset, window, cap, GQA groups 1-8)
-     and a view that must take its CUDA-core body, each asserting which
-     body ran, the paged kernel also past a full cluster of splits, at G
-     48 and on a pool view off the 16-byte rule; then timed beside its
+     body (each tile at head_dim 64, 128 and 256, ragged edges, q_offset,
+     window, cap, GQA groups 1-8) and views at head_dim 64 and 256 that
+     must take its CUDA-core body, each asserting which body ran, the
+     paged kernel also past a full cluster of splits, at G 48 and on a
+     pool view off the 16-byte rule; then timed beside its
      plain version, one PyTorch library call where there is one (for the
      paged kernel, which no library call matches, the split-K decode
      kernel at the same geometry, in turns), and its bound (the SSD scan's
@@ -30,8 +33,10 @@ stale ``.profile_store/`` in the working directory changes nothing:
      G 8), Whisper-medium (hd 64, G 1: its bidirectional encoder over
      1500 frames, its decoder's self-attention, its cross-attention at
      prefill through K1 and at decode through K2 over a transposed view of
-     the encoder's cache), Gemma-2-2B (hd 256, cap 50: K1's CUDA-core
-     body, K2 over a 1,024-position cache) and the examples phase's
+     the encoder's cache), Gemma-2-2B (hd 256, cap 50: K1's wgmma body,
+     held at each of its two tiles and timed at each, without the cap and
+     at one sequence, beside its CUDA-core body on a view; K2 over a
+     1,024-position cache) and the examples phase's
      full-width quickstart (K1 at 128 x 32 tokens, hd 64, G 3: a partial q
      tile), each held against its plain
      version in both dtypes with the body asserted, and timed on the
@@ -230,7 +235,7 @@ DEV = torch.device("cuda")
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 # (B, Tq, Tk, H, KV, hd, causal, window, cap): the reference's FLASH_CASES,
-# plus one at head_dim 256
+# plus one at head_dim 256 (float32: the CUDA-core body; bf16: wgmma)
 FLASH_CASES = [
     (2, 256, 256, 8, 2, 64, True, None, None),
     (1, 128, 128, 4, 4, 32, True, 64, None),
@@ -239,13 +244,15 @@ FLASH_CASES = [
     (1, 96, 96, 8, 8, 32, False, None, None),
     (3, 384, 384, 15, 5, 64, True, None, None),
     (2, 200, 200, 6, 2, 64, False, None, None),
-    (1, 64, 64, 8, 4, 256, True, 32, 50.0),     # gemma2's head_dim: CUDA-core body
+    (1, 64, 64, 8, 4, 256, True, 32, 50.0),     # gemma2's head_dim
 ]
-# cases of the flash kernel's wgmma body (bf16, head_dim 64 and 128):
+# cases of the flash kernel's wgmma body (bf16, head_dim 64, 128 and 256):
 # ((B, Tq, Tk, H, KV, hd, causal, window, cap), q_offset, (block_q,
 # block_k)): each tile, at hd 64 and, with window and cap, at hd 128 (G 8);
 # Tq not a multiple of the tile (200, 384); Tk > Tq with q_offset; G 1, 3
-# and 8; bidirectional; the default tile
+# and 8; bidirectional; the default tile; at hd 256 each of its two tiles
+# at Gemma-2-2B's G 2 and cap 50 (a window of 32 that cuts the tiles, Tq
+# 100, q_offset with Tk > Tq), G 1 and G 8
 WGMMA_CASES = (
     [((2, 256, 256, 8, 2, 64, True, None, None), 0, (bq, bk))
      for bq in (64, 128) for bk in (64, 128)]
@@ -256,7 +263,14 @@ WGMMA_CASES = (
        ((2, 100, 300, 8, 8, 64, True, None, None), 200, (64, 128)),
        ((2, 130, 400, 16, 2, 128, True, None, 50.0), 270, (128, 64)),
        ((2, 200, 200, 6, 2, 64, False, None, None), 0, (64, 64)),
-       ((2, 200, 200, 6, 2, 128, True, 64, None), 0, (None, None))])
+       ((2, 200, 200, 6, 2, 128, True, 64, None), 0, (None, None))]
+    + [(case, q_offset, tile) for tile in ((64, 64), (128, 64))
+       for case, q_offset in (
+           ((1, 192, 192, 4, 2, 256, True, 32, 50.0), 0),
+           ((2, 100, 100, 4, 2, 256, True, None, 50.0), 0),
+           ((1, 70, 200, 4, 2, 256, True, 128, 50.0), 130),
+           ((2, 200, 200, 4, 4, 256, True, None, 50.0), 0),
+           ((1, 256, 256, 8, 1, 256, True, 100, None), 0))])
 
 # (B, S, H, KV, hd, pos, window, cap): the reference's DECODE_CASES
 DECODE_CASES = [
@@ -514,6 +528,35 @@ def phase_build() -> None:
         print(f"[build] {name}: {len(regs)} kernels, registers "
               f"{min(regs)}-{max(regs)} a thread; "
               + ("; ".join(spills) if spills else "no spills"))
+    inst = _wgmma_instances(build.PTXAS_REPORT["flash_attention"])
+    assert len(inst) == sum(map(len, k1.TILES.values())), inst
+    print("[build] flash wgmma instances (head_dim, block_q, block_k): "
+          "registers a thread, spill stores / loads (bytes), dynamic shared "
+          "memory a block: " + "; ".join(
+              f"{key} {r} regs, {st} / {ld}, {k1.wgmma_smem(*key)} B"
+              for key, (r, st, ld) in sorted(inst.items())))
+    for ln in build.PTXAS_REPORT["flash_attention"].splitlines():
+        if "serialized" in ln or "Performance" in ln:
+            print(f"[build] flash_attention ptxas: {ln.strip()}")
+    spilled = {key: v for key, v in inst.items() if v[1] or v[2]}
+    assert not spilled, ("wgmma instances spill registers", spilled)
+
+
+def _wgmma_instances(log: str) -> dict:
+    """ptxas's report of each ``flash_fwd_wgmma_kernel<HD, BM, BN>``:
+    (HD, BM, BN) -> (registers, spill store bytes, spill load bytes)."""
+    out = {}
+    for entry in log.split("Compiling entry function")[1:]:
+        name = re.search(r"flash_fwd_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                         entry)
+        if name is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", entry)
+        regs = re.search(r"Used (\d+) registers", entry)
+        out[tuple(map(int, name.groups()))] = (
+            int(regs.group(1)), int(spill.group(1)), int(spill.group(2)))
+    return out
 
 
 # each flash body's CUDA kernel, as its name shows in a trace
@@ -525,7 +568,7 @@ FLASH_KERNEL = {"wgmma": "flash_fwd_wgmma_kernel",
 def _flash_body(dtype, hd: int) -> str:
     """The body of the flash kernel that aligned inputs of ``dtype`` and
     ``hd`` take."""
-    if dtype == torch.float32 or hd == 256:
+    if dtype == torch.float32:
         return "cuda_cores"
     return "wgmma" if k1.wgmma_class(dtype, hd) else "mma_sync"
 
@@ -617,8 +660,8 @@ def phase_kernels() -> dict:
         if dtype == torch.bfloat16:
             fl += [_check_flash(gen, c, dtype, q_offset, tile)
                    for c, q_offset, tile in WGMMA_CASES]
-            fl.append(_check_flash(gen, slice_flash, dtype, body="cuda_cores",
-                                   view=True))
+            fl += [_check_flash(gen, c, dtype, body="cuda_cores", view=True)
+                   for c in (slice_flash, FLASH_CASES[-1])]
         dc = ([_check_decode(gen, c, dtype, False) for c in DECODE_CASES]
               + [_check_decode(gen, c, dtype, True)
                  for c in KVMAJOR_CASES + [slice_decode]]
@@ -656,11 +699,10 @@ def phase_kernels() -> dict:
         tuple(sum(x) / 2 for x in zip(*turns[n])) for n in ("k1", "sdpa"))
     f_plain = _time_ms(lambda: attention_ref(q, k, v, causal=True))
     tiles = {}
-    for bq in k1.TILES:
-        for bk in k1.TILES:
-            _check_tile(q, k, v, (bq, bk), "serving shape")
-            tiles[bq, bk] = _graph_ms(lambda: flash_ops.flash_attention(
-                q, k, v, causal=True, block_q=bq, block_k=bk))
+    for bq, bk in k1.TILES[hd]:
+        _check_tile(q, k, v, (bq, bk), "serving shape")
+        tiles[bq, bk] = _graph_ms(lambda: flash_ops.flash_attention(
+            q, k, v, causal=True, block_q=bq, block_k=bk))
     # the CUDA-core body, which float32 takes, beside its plain version
     q32, k32, v32 = q.float(), k.float(), v.float()
     f32_ms = _time_ms(lambda: flash_ops.flash_attention(q32, k32, v32,
@@ -768,7 +810,8 @@ def phase_family_shapes() -> dict:
     encoder frames, not a multiple of either wgmma tile; non-causal
     encoder and cross-attention; the decode step's cross-attention through
     a transposed view of the (B, S_enc, KV, hd) cache), Gemma-2-2B (hd
-    256, G 2, cap 50: K1's CUDA-core body) and the full-width quickstart
+    256, G 2, cap 50: K1's wgmma body, also at each of its tiles, timed
+    with and without the cap) and the full-width quickstart
     (hd 64, G 3, 128 x 32 positions: a partial q tile), each held against
     its plain version in float32 and bfloat16 with the body asserted, then
     timed in bf16 on the device alone, with its window and cap, beside SDPA
@@ -785,6 +828,33 @@ def phase_family_shapes() -> dict:
             rows.setdefault(name, {})[dtype] = _check_decode(
                 gen, case, dtype, True, view=view)[0]
     dt = torch.bfloat16
+    # Gemma-2-2B's prefill call at each wgmma tile of head_dim 256: held
+    # against the plain version, then timed on the device alone with its
+    # cap, without it (the cap's share of the kernel's time) and at one
+    # sequence (the token path's prefill call); and the CUDA-core body at
+    # the same call, on a view off the 16-byte rule
+    case = flash["gemma2 prefill"]
+    B, Tq, Tk, H, KV, hd, causal, window, cap = case
+    q, k, v = _qkv(gen, (B, Tq, H, hd + 4), (B, Tk, KV, hd + 4), dt)
+    views = tuple(x[..., 4:] for x in (q, k, v))
+    q, k, v = (x[..., :hd].contiguous() for x in (q, k, v))
+
+    def gemma_ms(q, k, v, c=cap, tile=(None, None)):
+        return _graph_ms(lambda: flash_ops.flash_attention(
+            q, k, v, causal=causal, window=window, logit_cap=c,
+            block_q=tile[0], block_k=tile[1]))
+
+    for tile in k1.TILES[hd]:
+        err = _check_flash(gen, case, dt, tile=tile)[0]
+        print(f"[kernels] K1 at the gemma2 prefill shape {case}, wgmma tile "
+              f"{tile[0]}x{tile[1]}: max |kernel - plain| bfloat16 "
+              f"{err:.3e} (tol 2e-2); bf16 device "
+              f"{gemma_ms(q, k, v, tile=tile):.4f} ms with the cap, "
+              f"{gemma_ms(q, k, v, None, tile):.4f} ms without it, "
+              f"{gemma_ms(q[:1], k[:1], v[:1], tile=tile):.4f} ms at B 1")
+    print(f"[kernels] K1 at the gemma2 prefill shape {case}, CUDA-core body "
+          f"(a view off the 16-byte rule): bf16 device "
+          f"{gemma_ms(*views):.4f} ms")
     timed = {}
     for name, case in flash.items():
         B, Tq, Tk, H, KV, hd, causal, window, cap = case
@@ -1937,7 +2007,7 @@ def phase_tokens() -> dict:
     warm_s = time.perf_counter() - t0
     k1_warm = k1.LAUNCHES
     assert k1_warm == n_pre * len(SLOT_LADDER), ("prefills' K1", k1_warm)
-    assert k1.LAUNCHES_BY_BODY["cuda_cores"] == k1_warm, k1.LAUNCHES_BY_BODY
+    assert k1.LAUNCHES_BY_BODY["wgmma"] == k1_warm, k1.LAUNCHES_BY_BODY
     assert ex.captures == len(SLOT_LADDER) == ex.cache_stats.misses
     print(f"[tokens] {cfg.name} decode executor: {len(SLOT_LADDER)} slot "
           f"buckets {sorted(SLOT_LADDER)} warmed largest first in "
@@ -2671,10 +2741,10 @@ def _check_flash_class(dtype, dims) -> float:
     (``autotune.flash_inputs``), at every wgmma tile it may time."""
     cls = autotune.shape_class("flash_attention", **dims)
     q, k, v = autotune.flash_inputs(cls, dtype, DEV)
-    err = max(_check_tile(q, k, v, (bq, bk), str(cls))
-              for bq in k1.TILES for bk in k1.TILES)
+    tiles = k1.TILES[cls["hd"]]
+    err = max(_check_tile(q, k, v, tile, str(cls)) for tile in tiles)
     print(f"[autotune] flash_attention at the tuned class {cls} "
-          f"{str(dtype)[6:]}, wgmma tiles {k1.TILES} x {k1.TILES}: max "
+          f"{str(dtype)[6:]}, wgmma tiles {tiles}: max "
           f"|kernel - plain| {err:.3e} (tol {TOL[dtype]:g})")
     return err
 

@@ -11,8 +11,11 @@
 // the tensor cores come near either.  Every K tile that causality, the
 // window or the key length masks completely is skipped by the loop
 // bounds, and the ragged q and k edges are masked here, so the caller never
-// pads.  Three bodies, chosen in flash_attention_fwd:
-//  - flash_fwd_wgmma_kernel (bf16, head_dim 64 or 128, 16-byte aligned
+// pads.  At head_dim 256 (Gemma-2's call, 8 x 512, 8 heads, 4 kv heads) the
+// bytes are 50.3 MB, 0.0150 ms at 3.35 TB/s, and the work 8.6 GFLOP, 0.0087
+// ms at the bf16 peak: bytes-bound too.  Three bodies, chosen in
+// flash_attention_fwd:
+//  - flash_fwd_wgmma_kernel (bf16, head_dim 64, 128 or 256, 16-byte aligned
 //    operands and strides): one block per (query tile of BM positions,
 //    query head, batch), the heaviest causal tiles first.  A producer warp
 //    loads the Q tile once and keeps K/V tiles of BN keys in flight with TMA
@@ -20,11 +23,15 @@
 //    by full/empty mbarriers; each consumer warpgroup owns 64 query rows
 //    and runs S = Q K^T as wgmma with both operands in shared memory, the
 //    online softmax on the accumulator fragment (in the log2 domain, one
-//    ex2.approx per score), and O += P V as wgmma with P in registers and V
-//    read MN-major through the descriptor's transpose bit.  The GQA group
-//    is not folded into the rows as on the TPU: the G query heads of a kv
-//    head re-read its K/V tiles, from L2.  Registers are budgeted for two
-//    or three blocks per SM, whose softmax and products interleave.
+//    ex2.approx per score, and the cap's tanh as one tanh.approx), and O +=
+//    P V as wgmma with P in registers and V read MN-major through the
+//    descriptor's transpose bit.  The GQA group is not folded into the rows
+//    as on the TPU: the G query heads of a kv head re-read its K/V tiles,
+//    from L2.  Registers are budgeted for two or three blocks per SM, whose
+//    softmax and products interleave, where their shared memory lets them
+//    (wgmma_min_blocks); where two consumer warpgroups need more than the
+//    168 registers a thread of a 288-thread block, the producer is a whole
+//    warpgroup that hands its registers to them (wgmma_producer_threads).
 //    Measured on an H100 at 700 W (chip_smoke.py, PERF.md) at the serving
 //    shape: about 0.025 ms on the device against a 0.0063 ms bound and
 //    SDPA's 0.023 ms.  What holds it back: each warpgroup's softmax runs
@@ -34,12 +41,26 @@
 //    exponentials take as long as the tensor cores' products; a block with
 //    few key tiles pays the latency of its first loads; and every (query
 //    tile, head) reads its K/V tiles from L2 again.
+//    At head_dim 256 a K or V tile of 64 keys is 32 KB, so the tiles are
+//    (64, 64) and (128, 64) only (164,904 and 197,672 B of shared memory a
+//    block; a 128-key tile needs 295,976 B), one block an SM; each
+//    consumer thread holds 128 output accumulators, and PV is one
+//    m64n256k16 a 16-key step.  Measured on an H100 at 700 W (PERF.md) at
+//    Gemma-2's call (cap 50): 0.051 ms at (64, 64), the default, and 0.045
+//    at (128, 64) on the device, against a 0.0150 ms bound, SDPA's 0.038
+//    and the CUDA-core body's 1.61; at one sequence of 512 0.016 and 0.024
+//    ms.  What holds it back: one block an SM, so at (64, 64) one consumer
+//    warpgroup whose softmax leaves the tensor cores idle, and at (128, 64)
+//    half as many blocks.  The cap's float32 tanhf took 41% of the time;
+//    tanh.approx takes 4%.
 //  - flash_fwd_mma_kernel (bf16, the other head sizes that are multiples of
 //    16 up to 128, 16-byte aligned operands): one block per (batch x kv
 //    head, query tile) with the GQA group folded into the rows; each of 4
 //    warps owns 16 rows and runs QK^T and PV as mma.sync m16n8k16.
-//  - flash_fwd_kernel (float32, head_dim 256, and views the tensor-core
-//    bodies cannot read): CUDA cores, the group folded into the rows.  Each
+//  - flash_fwd_kernel (float32 at any head_dim up to 256, and views the
+//    tensor-core bodies cannot read): CUDA cores, the group folded into
+//    the rows; at head_dim 256 its float32 copies of Q, K and V take
+//    198,912 B of shared memory, one 8-warp block an SM.  Each
 //    warp owns up to RW rows and keeps their online-softmax state in float32
 //    registers; lane j scores keys j and j + 32 of the tile, and the PV
 //    product gives each lane head_dim / 32 output columns.
@@ -402,29 +423,56 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v, void* o, i
 }
 
 // ---------------------------------------------------------------------------
-// Hopper body (bf16, head_dim 64 or 128).  Shared memory, from a 1024-byte
-// aligned base (the 128-byte swizzle's period): the Q tile, then WG_STAGES
-// K tiles, then WG_STAGES V tiles, then the mbarriers.  Every tile is kept
-// as head_dim / 64 column halves of rows of 128 bytes, each half one TMA
-// box, as TMA writes them with CU_TENSOR_MAP_SWIZZLE_128B: row r at byte
-// 128 r, its 16-byte chunk c at chunk c ^ (r % 8).  That is wgmma's
-// 128-byte-swizzle canonical layout with 8-row groups 1024 bytes apart.
+// Hopper body (bf16, head_dim 64, 128 or 256).  Shared memory, from a
+// 1024-byte aligned base (the 128-byte swizzle's period): the Q tile, then
+// WG_STAGES K tiles, then WG_STAGES V tiles, then the mbarriers.  Every
+// tile is kept as head_dim / 64 column chunks of rows of 128 bytes, each
+// chunk one TMA box, as TMA writes them with CU_TENSOR_MAP_SWIZZLE_128B:
+// row r at byte 128 r, its 16-byte chunk c at chunk c ^ (r % 8).  That is
+// wgmma's 128-byte-swizzle canonical layout with 8-row groups 1024 bytes
+// apart.
 // ---------------------------------------------------------------------------
 constexpr int WG_STAGES = 2;                 // K/V tiles in flight
-constexpr int WG_TILES[2] = {64, 128};       // BM and BN each (dispatch_wgmma)
-constexpr int WG_BM = 64, WG_BN = 64;        // the default tile
 
 __host__ __device__ constexpr int wgmma_smem_bytes(int hd, int bm, int bn) {
   return 1024 /* alignment slack */ + 2 * hd * (bm + 2 * WG_STAGES * bn) +
          8 * (2 * WG_STAGES + 1);
 }
 
+constexpr int WG_BM = 64, WG_BN = 64;        // the default tile, at every head_dim
+
+// Every instance of the Hopper body, X(head_dim, BM, BN).  At head_dim 256 a
+// 128-key tile does not fit a block's 232,448 bytes of shared memory
+// (295,976 at BM 64), so that head_dim has 64-key tiles only.
+#define FLASH_WGMMA_INSTANCES(X)                                                       \
+  X(64, 64, 64) X(64, 64, 128) X(64, 128, 64) X(64, 128, 128)                          \
+  X(128, 64, 64) X(128, 64, 128) X(128, 128, 64) X(128, 128, 128)                      \
+  X(256, 64, 64) X(256, 128, 64)
+#define FLASH_WGMMA_FITS(HD_, BM_, BN_) \
+  static_assert(wgmma_smem_bytes(HD_, BM_, BN_) <= 232448, "wgmma tile over shared memory");
+FLASH_WGMMA_INSTANCES(FLASH_WGMMA_FITS)
+#undef FLASH_WGMMA_FITS
+
 // Blocks per SM each instance's register budget is cut for: three of 64
 // rows and two of 128 where the scores and the output fit (head_dim 64 and
-// 64-key tiles), else two of 64 and one of 128.
+// 64-key tiles), else two of 64 rows where two fit the SM's shared memory,
+// and one.
 __host__ __device__ constexpr int wgmma_min_blocks(int hd, int bm, int bn) {
-  return hd == 64 && bn == 64 ? (bm == 64 ? 3 : 2) : (bm == 64 ? 2 : 1);
+  return hd == 64 && bn == 64 ? (bm == 64 ? 3 : 2)
+         : bm == 64 && 2 * wgmma_smem_bytes(hd, bm, bn) <= 232448 ? 2 : 1;
 }
+
+// Threads of the producer: one warp, or a whole warpgroup where two
+// consumer warpgroups hold output and score fragments of 128 registers or
+// more (hd / 2 + bn / 2 a thread: head_dim 256, and 128 with 128-key
+// tiles).  A block of 288 threads is allotted at most 168 registers a
+// thread, too few for those; with a producer warpgroup (384 threads)
+// setmaxnreg moves the producer's registers to the consumers: 128 x 40 +
+// 256 x 232 = 64,512 of the SM's 65,536.
+__host__ __device__ constexpr int wgmma_producer_threads(int hd, int bm, int bn) {
+  return bm == 128 && hd + bn >= 256 ? 128 : 32;
+}
+constexpr int WG_PRODUCER_REGS = 40, WG_CONSUMER_REGS = 232;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -506,6 +554,15 @@ constexpr float LOG2E = 1.4426950408889634f;
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// tanh on the special-function unit (relative error about 2^-11), for the
+// logit cap: against the float32 tanhf, one instruction instead of two
+// special-function ones and a polynomial a score.
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
 
@@ -638,9 +695,70 @@ template <> struct Wgmma<128> {
   }
 };
 
+// Only PV at head_dim 256 is 256 wide (QK^T there takes 64-key tiles)
+template <> struct Wgmma<256> {
+  // D (64 x 256) += A B: A from registers, B from shared memory, MN-major
+  static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
 
 template <int HD, int BM, int BN>
-__global__ void __launch_bounds__(BM / 64 * 128 + 32, wgmma_min_blocks(HD, BM, BN))
+__global__ void __launch_bounds__(BM / 64 * 128 + wgmma_producer_threads(HD, BM, BN),
+                                  wgmma_min_blocks(HD, BM, BN))
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
@@ -649,7 +767,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        float scale) {
   using namespace attn;
   constexpr int NC = BM / 64;                // consumer warpgroups
-  constexpr int HALVES = HD / 64;            // 128-byte column halves of a row
+  constexpr int HALVES = HD / 64;            // 128-byte column chunks of a row
   constexpr int Q_BYTES = BM * HD * 2;
   constexpr int T_BYTES = BN * HD * 2;       // one K or V tile
   extern __shared__ uint8_t smem_raw[];
@@ -687,8 +805,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (warp == NC * 4) {                      // the producer warp
-    if (lane == 0) {
+  constexpr bool REALLOC = wgmma_producer_threads(HD, BM, BN) == 128;
+  if (warp >= NC * 4) {                      // the producer
+    if constexpr (REALLOC)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WG_PRODUCER_REGS));
+    if (warp == NC * 4 && lane == 0) {
       const int hk = h / G;
       mbar_expect_tx(bar_q, Q_BYTES);
       for (int c = 0; c < HALVES; ++c) tma_load(sQ + c * BM * 128, &tq, bar_q, c * 64, h, p0, b);
@@ -706,6 +827,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     return;
   }
 
+  if constexpr (REALLOC)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WG_CONSUMER_REGS));
   // a consumer thread: rows row0 and row0 + 8 of the tile
   const int wg = warp >> 2, gid = lane >> 2, tig = lane & 3;
   const int row0 = wg * 64 + (warp & 3) * 16 + gid;
@@ -748,9 +871,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const bool edge = k0 + BN > Tk || (causal && k0 + BN - 1 > q_lo) ||
                       (window > 0 && k0 <= q_hi - window);
     float mx0 = NEG_INF, mx1 = NEG_INF;
-    if (logit_cap > 0.f) {
+    if (logit_cap > 0.f) {                   // cap * tanh(s scale / cap)
+      const float cap_in = scale / logit_cap, cap_out = logit_cap * LOG2E;
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) sc[i] = cap_logit(sc[i] * scale, logit_cap) * LOG2E;
+      for (int i = 0; i < BN / 2; ++i) sc[i] = cap_out * tanh_approx(sc[i] * cap_in);
     } else {
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) sc[i] *= scale2;
@@ -901,17 +1025,18 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, i
       !encode_map(&tv, v, HD, KV, Tk, B, st[8], st[7], st[6], BN))
     return cudaErrorInvalidValue;
   const long long blocks = (long long)((Tq + BM - 1) / BM) * H * B;
-  kern<<<(unsigned)blocks, BM / 64 * 128 + 32, SMEM, stream>>>(
+  kern<<<(unsigned)blocks, BM / 64 * 128 + wgmma_producer_threads(HD, BM, BN), SMEM, stream>>>(
       tq, tk, tv, (__nv_bfloat16*)o, B, H, Tq, Tk, G, st[9], st[10], st[11], causal, window,
       logit_cap, q_offset, scale);
   return cudaGetLastError();
 }
 
-// The Hopper body takes bf16 at head_dim 64 or 128 with 16-byte aligned
-// operands and strides that are positive multiples of 16 bytes (TMA's rule).
+// The Hopper body takes bf16 at head_dim 64, 128 or 256 with 16-byte
+// aligned operands and strides that are positive multiples of 16 bytes
+// (TMA's rule).
 bool wgmma_ok(int dtype, int hd, int Tq, int Tk, const void* q, const void* k, const void* v,
               const void* o, const long long* st) {
-  if (dtype != 1 || (hd != 64 && hd != 128) || Tq < 1 || Tk < 1) return false;
+  if (dtype != 1 || (hd != 64 && hd != 128 && hd != 256) || Tq < 1 || Tk < 1) return false;
   const unsigned long long addr = (unsigned long long)q | (unsigned long long)k |
                                   (unsigned long long)v | (unsigned long long)o;
   if (addr % 16 != 0) return false;
@@ -928,14 +1053,7 @@ cudaError_t dispatch_wgmma(int hd, int bm, int bn, const void* q, const void* k,
   if (hd == HD_ && bm == BM_ && bn == BN_)                                                    \
     return launch_wgmma<HD_, BM_, BN_>(q, k, v, o, B, Tq, Tk, KV, G, st, causal, window,      \
                                        logit_cap, q_offset, scale, s);
-  FLASH_WGMMA(64, 64, 64)
-  FLASH_WGMMA(64, 64, 128)
-  FLASH_WGMMA(64, 128, 64)
-  FLASH_WGMMA(64, 128, 128)
-  FLASH_WGMMA(128, 64, 64)
-  FLASH_WGMMA(128, 64, 128)
-  FLASH_WGMMA(128, 128, 64)
-  FLASH_WGMMA(128, 128, 128)
+  FLASH_WGMMA_INSTANCES(FLASH_WGMMA)
 #undef FLASH_WGMMA
   return cudaErrorInvalidValue;              // a tile the body lacks
 }
@@ -1024,17 +1142,22 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, in
 }
 
 // The Hopper body's constants, for the launcher to hold its own copies
-// against: tiles[2] (BM and BN each), default_tile[2] (BM, BN), *stages, and
-// smem[8], the shared memory of a block at [head_dim 64, 128][BM][BN].
-void flash_wgmma_config(int* tiles, int* default_tile, int* stages, int* smem) {
-  for (int i = 0; i < 2; ++i) tiles[i] = WG_TILES[i];
+// against: default_tile[2] (BM, BN), *stages, and *n instances (at most
+// `cap`), four ints each in `inst`: head_dim, BM, BN and the shared memory
+// of a block.
+void flash_wgmma_config(int cap, int* n, int* inst, int* default_tile, int* stages) {
   default_tile[0] = WG_BM;
   default_tile[1] = WG_BN;
   *stages = WG_STAGES;
-  for (int h = 0; h < 2; ++h)
-    for (int i = 0; i < 2; ++i)
-      for (int j = 0; j < 2; ++j)
-        smem[4 * h + 2 * i + j] = wgmma_smem_bytes(64 * (h + 1), WG_TILES[i], WG_TILES[j]);
+  *n = 0;
+#define FLASH_WGMMA_ROW(HD_, BM_, BN_)                                     \
+  if (*n < cap) {                                                          \
+    const int row[4] = {HD_, BM_, BN_, wgmma_smem_bytes(HD_, BM_, BN_)};   \
+    for (int i = 0; i < 4; ++i) inst[4 * *n + i] = row[i];                 \
+  }                                                                        \
+  ++*n;
+  FLASH_WGMMA_INSTANCES(FLASH_WGMMA_ROW)
+#undef FLASH_WGMMA_ROW
 }
 
 }  // extern "C"

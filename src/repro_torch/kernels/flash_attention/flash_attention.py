@@ -6,14 +6,21 @@ what bounds it on the card and what its design does about that.  Three
 bodies, chosen in C by dtype, head_dim, the operands' 16-byte alignment and
 their strides:
 
-  * ``wgmma`` (bf16, head_dim 64 or 128): TMA loads of K/V tiles into a
-    ring of shared-memory stages, ``wgmma`` for QK^T and PV, one block per
-    (query tile, query head, batch); its tile (``block_q`` x ``block_k``,
-    each 64 or 128) is a knob;
+  * ``wgmma`` (bf16, head_dim 64, 128 or 256): TMA loads of K/V tiles into
+    a ring of shared-memory stages, ``wgmma`` for QK^T and PV, one block
+    per (query tile, query head, batch); its tile (``block_q`` x
+    ``block_k``, ``TILES`` by head_dim) is a knob.  At head_dim 256 a
+    block's shared memory is 164,904 B at (64, 64) and 197,672 B at (128,
+    64), one block an SM, and a 128-key tile does not fit; bounded by the
+    bytes it moves.  At Gemma-2's prefill call (8 x 512, 8 heads, 4 kv
+    heads, cap 50) 0.051 ms on the device at (64, 64), 0.045 at (128, 64),
+    against a 0.0150 ms bound and SDPA's 0.038 (H100 80GB HBM3, 700 W);
   * ``mma_sync`` (bf16 at the other head sizes that are multiples of 16 up
     to 128): ``mma.sync`` m16n8k16, the GQA group folded into the rows;
-  * ``cuda_cores`` (float32, head_dim 256, and views the tensor-core bodies
-    cannot read).
+  * ``cuda_cores`` (float32 at any head_dim up to 256, and views the
+    tensor-core bodies cannot read): float32 FMAs, the group folded into
+    the rows; at head_dim 256 198,912 B of shared memory a block, 1.62 ms
+    at Gemma-2's call in bf16.
 
 The last two have one tile each: ``fixed_tile(G)``.  Takes the model's
 (B, T, H, hd) / (B, T, KV, hd) layout directly through strides: no
@@ -36,7 +43,11 @@ LAUNCHES_BY_BODY = dict.fromkeys(BODIES, 0)       # the same launches, by body
 # the wgmma body's constants, which the autotuner prices its tiles by
 # without a built library; ``_lib`` holds them against the C library's
 # ``flash_wgmma_config`` and raises where they differ
-TILES = (64, 128)     # block_q and block_k of the wgmma body
+# (block_q, block_k) of the wgmma body by head_dim: 64 or 128 each, and at
+# head_dim 256 64-key tiles only (a 128-key tile overflows shared memory)
+TILES = {64: ((64, 64), (64, 128), (128, 64), (128, 128)),
+         128: ((64, 64), (64, 128), (128, 64), (128, 128)),
+         256: ((64, 64), (128, 64))}
 DEFAULT_TILE = (64, 64)   # the wgmma body's tile when none is given
 STAGES = 2            # K/V tiles in flight in the wgmma body
 
@@ -52,7 +63,7 @@ def fixed_tile(G: int) -> tuple:
 def wgmma_class(dtype, hd: int) -> bool:
     """Whether the wgmma body takes this dtype and head_dim (given aligned
     operands)."""
-    return str(dtype).replace("torch.", "") == "bfloat16" and hd in (64, 128)
+    return str(dtype).replace("torch.", "") == "bfloat16" and hd in TILES
 
 
 def wgmma_smem(hd: int, block_q: int, block_k: int) -> int:
@@ -78,6 +89,7 @@ def _lib():
             P, P, P, P, I, I, I, I, I, I, I, P, I, I, F, I, F, I, I, I,
             ctypes.POINTER(I), P]
         lib.flash_attention_fwd.restype = I
+        lib.flash_wgmma_config.argtypes = [I, P, P, P, P]
         lib.flash_wgmma_config.restype = None
         _check_config(lib)
         lib._typed = True
@@ -86,16 +98,21 @@ def _lib():
 
 def _check_config(lib) -> None:
     """Raise unless the C library's wgmma constants are this module's."""
-    tiles, default, smem = ((ctypes.c_int * n)() for n in (2, 2, 8))
-    stages = ctypes.c_int()
-    lib.flash_wgmma_config(tiles, default, ctypes.byref(stages), smem)
-    want = [wgmma_smem(hd, bq, bk) for hd in (64, 128) for bq in TILES
-            for bk in TILES]
-    got = (tuple(tiles), tuple(default), stages.value, list(smem))
-    if got != (TILES, DEFAULT_TILE, STAGES, want):
+    cap = 32
+    inst, default = (ctypes.c_int * (4 * cap))(), (ctypes.c_int * 2)()
+    n, stages = ctypes.c_int(), ctypes.c_int()
+    lib.flash_wgmma_config(cap, ctypes.byref(n), inst, default,
+                           ctypes.byref(stages))
+    got = (tuple(default), stages.value, n.value,
+           [tuple(inst[4 * i:4 * i + 4]) for i in range(min(n.value, cap))])
+    rows = [(hd, bq, bk, wgmma_smem(hd, bq, bk))
+            for hd, tiles in TILES.items() for bq, bk in tiles]
+    want = (DEFAULT_TILE, STAGES, len(rows), rows)
+    if got != want:
         raise RuntimeError(f"flash_attention: the library's wgmma constants "
-                           f"{got} differ from the launcher's "
-                           f"{(TILES, DEFAULT_TILE, STAGES, want)}")
+                           f"(default tile, stages, tiles, (head_dim, "
+                           f"block_q, block_k, shared memory) a tile) {got} "
+                           f"differ from the launcher's {want}")
 
 
 def flash_attention_fwd(

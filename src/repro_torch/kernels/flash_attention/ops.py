@@ -9,7 +9,8 @@ Tiles: explicit ``block_q`` / ``block_k`` keywords win; on a CUDA tensor,
 those left None come from the autotune cache (``repro_torch.perf.
 autotune``) for this shape class, dtype and card, and else from the body's
 default, as the reference's wrapper does.  The wgmma body (bf16, head_dim
-64 or 128) takes 64 or 128 for each; the other bodies one tile,
+64, 128 or 256) takes its tiles at that head_dim (``TILES``: 64 or 128
+each, and at head_dim 256 64-key tiles only); the other bodies one tile,
 ``fixed_tile(G)``.  An explicit tile the kernel lacks raises before any
 launch.  A tuned tile is the wgmma body's: a call of a tuned class that
 another body takes (a view off the 16-byte rule) runs at that body's own
@@ -53,19 +54,21 @@ def _check(q, k, v) -> None:
         raise ValueError("flash_attention: last dim must be contiguous")
 
 
-def check_tile(block_q: Optional[int], block_k: Optional[int],
-               G: int) -> None:
+def check_tile(block_q: Optional[int], block_k: Optional[int], G: int,
+               hd: int) -> None:
     """Raise unless the tile (a side left None is free) is one some body of
-    the kernel has: the wgmma body's 64 or 128 each, or the other bodies'
-    ``fixed_tile(G)``."""
+    the kernel has: a wgmma tile at this head_dim (``TILES``), or the other
+    bodies' ``fixed_tile(G)``."""
     tile = (block_q, block_k)
-    wgmma = all(x is None or x in _kernel.TILES for x in tile)
-    fixed = all(x is None or x == f
-                for x, f in zip(tile, _kernel.fixed_tile(G)))
-    if not (wgmma or fixed):
+
+    def fits(want):
+        return all(x is None or x == w for x, w in zip(tile, want))
+
+    wgmma = _kernel.TILES.get(hd, ())
+    if not (any(fits(t) for t in wgmma) or fits(_kernel.fixed_tile(G))):
         raise ValueError(
-            f"flash_attention: tile {block_q} x {block_k} (block_q and "
-            f"block_k 64 or 128, or {_kernel.fixed_tile(G)} at G {G})")
+            f"flash_attention: tile {block_q} x {block_k} (at head_dim {hd} "
+            f"the wgmma tiles {wgmma}, or {_kernel.fixed_tile(G)} at G {G})")
 
 
 def _resolve_tile(block_q, block_k, q, k, causal: bool) -> tuple:
@@ -99,7 +102,7 @@ def flash_attention(
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              logit_cap=logit_cap, q_offset=q_offset)
-    check_tile(block_q, block_k, q.shape[2] // k.shape[2])
+    check_tile(block_q, block_k, q.shape[2] // k.shape[2], q.shape[3])
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     tuned = (block_q is None) | (block_k is None) << 1   # sides the cache fills

@@ -13,15 +13,17 @@ neighbourhood of shapes).  The knobs are the Hopper kernels':
     keys up to S, plus ``split_plan``'s choice for the class, the default;
   * ``ssd_scan``: the SSD-scan kernel's ``chunk``, 32 to 256 dividing T;
   * ``flash_attention``: on the card, the (``block_q``, ``block_k``) tile
-    of the flash kernel's wgmma body, 64 or 128 each, for the bf16 classes
-    at head_dim 64 and 128 that body takes; every other class reaches a
-    body with one tile (``fixed_tile``: 64 rows of query positions times
-    the GQA group, by 64 keys), so it has one candidate and ``tune`` only
-    records its time.  On the CPU the candidates are the block sizes of the
-    plain blockwise flash (``models.layers.flash_attention``), the
-    reference's list; only there does the plain flash read them.  A
-    tuned tile is the wgmma body's alone: a call of the class that another
-    body takes (a view off the 16-byte rule) runs at that body's tile.
+    of the flash kernel's wgmma body for the bf16 classes at head_dim 64,
+    128 and 256 that body takes: 64 or 128 each, and at head_dim 256 the
+    two 64-key tiles (a 128-key tile overflows shared memory there); every
+    other class reaches a body with one tile (``fixed_tile``: 64 rows of
+    query positions times the GQA group, by 64 keys), so it has one
+    candidate and ``tune`` only records its time.  On the CPU the
+    candidates are the block sizes of the plain blockwise flash
+    (``models.layers.flash_attention``), the reference's list; only there
+    does the plain flash read them.  A tuned tile is the wgmma body's
+    alone: a call of the class that another body takes (a view off the
+    16-byte rule) runs at that body's tile.
 
 A candidate is priced at max(FLOPs / peak, bytes / memory rate) over the
 card's constants (``perf.roofline``), divided by the share of the 132 SMs
@@ -241,7 +243,7 @@ def _flash_candidates(cls: dict, on_card: bool,
                       dtype: str = "float32") -> list:
     if _k1_wgmma(cls, dtype, on_card):
         return [{"block_q": bq, "block_k": bk}
-                for bq in _k1.TILES for bk in _k1.TILES]
+                for bq, bk in _k1.TILES[cls["hd"]]]
     if on_card:
         return [_k1_tile(cls["G"])]
     out = []

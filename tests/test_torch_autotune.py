@@ -123,21 +123,25 @@ def test_hopper_candidates_and_defaults():
 
 
 # (dtype, hd): the flash classes whose on-card candidates are the wgmma
-# body's four tiles, and classes that reach a body with one tile
-WGMMA_FLASH = [("bfloat16", 64), ("bfloat16", 128)]
+# body's tiles at that head_dim (four at 64 and 128, the two 64-key tiles
+# at 256), and classes that reach a body with one tile
+WGMMA_FLASH = [("bfloat16", 64), ("bfloat16", 128), ("bfloat16", 256)]
 FIXED_FLASH = [("float32", 64), ("float32", 128), ("bfloat16", 32),
-               ("bfloat16", 96), ("bfloat16", 256)]
+               ("bfloat16", 96)]
+WGMMA_TILES = {64: [(bq, bk) for bq in (64, 128) for bk in (64, 128)],
+               128: [(bq, bk) for bq in (64, 128) for bk in (64, 128)],
+               256: [(64, 64), (128, 64)]}
 
 
 @pytest.mark.parametrize("dtype,hd", WGMMA_FLASH + FIXED_FLASH, ids=str)
 @pytest.mark.parametrize("G", [1, 3, 8])
 def test_flash_card_candidates_and_their_shared_memory(dtype, hd, G):
-    """On the card the bf16 classes at head_dim 64 and 128 offer the wgmma
-    body's four tiles, priced at its shared memory (the Q tile and two K/V
-    stages in bf16, 1 KB of alignment slack, five mbarriers), every one
-    under a block's 227 KB, with the default (64 x 64) among them and kept
-    by pruning; every other class has the one tile of the body it
-    reaches."""
+    """On the card the bf16 classes at head_dim 64, 128 and 256 offer the
+    wgmma body's tiles at that head_dim, priced at its shared memory (the
+    Q tile and two K/V stages in bf16, 1 KB of alignment slack, five
+    mbarriers), every one under a block's 227 KB, with the default (64 x
+    64) among them and kept by pruning; every other class has the one tile
+    of the body it reaches."""
     cls = autotune.shape_class("flash_attention", BKV=40, G=G, hd=hd,
                                Tq=512, Tk=512, causal=True)
     cands = autotune._flash_candidates(cls, True, dtype)
@@ -146,7 +150,7 @@ def test_flash_card_candidates_and_their_shared_memory(dtype, hd, G):
                                      device="cuda")
     if (dtype, hd) in WGMMA_FLASH:
         assert cands == [{"block_q": bq, "block_k": bk}
-                         for bq in (64, 128) for bk in (64, 128)]
+                         for bq, bk in WGMMA_TILES[hd]]
         assert default == {"block_q": 64, "block_k": 64}
         for cand in cands:
             _, smem = autotune._flash_model(cls, cand, 2, True)

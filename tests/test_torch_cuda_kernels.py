@@ -131,6 +131,18 @@ WGMMA_CASES = (
        (1, 1500, 1500, 4, 4, 64, False, None, None, 0, None, None),
        (2, 200, 1500, 4, 4, 64, False, None, None, 0, 128, 128),
        (2, 512, 512, 16, 8, 128, True, None, None, 0, None, None)])
+# head_dim 256 at both of its tiles (64-key only): the CPU tests'
+# FLASH_256_CASES (tests/test_torch_kernels.py; Gemma-2-2B's G 2 and cap 50:
+# a window of 32 cutting the tiles, Tq 100, q_offset with Tk > Tq), then
+# G 1 and G 8, and Gemma-2-2B's prefill call itself (8 x 512, H 8, KV 4)
+WGMMA_256_CASES = [
+    case + (bq, bk) for bq, bk in ((64, 64), (128, 64)) for case in (
+        (1, 192, 192, 4, 2, 256, True, 32, 50.0, 0),
+        (2, 100, 100, 4, 2, 256, True, None, 50.0, 0),
+        (1, 70, 200, 4, 2, 256, True, 128, 50.0, 130),
+        (2, 200, 200, 4, 4, 256, True, None, 50.0, 0),
+        (1, 256, 256, 8, 1, 256, True, 100, None, 0),
+        (8, 512, 512, 8, 4, 256, True, None, 50.0, 0))]
 
 
 def _bodies_run(fn):
@@ -143,7 +155,7 @@ def _bodies_run(fn):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", WGMMA_CASES, ids=str)
+@pytest.mark.parametrize("case", WGMMA_CASES + WGMMA_256_CASES, ids=str)
 def test_flash_wgmma_body_matches_plain(gpu, case):
     """q and k at scale 2, so the softmax is peaked and a masking or layout
     error shows at 2e-2."""
@@ -161,13 +173,13 @@ def test_flash_wgmma_body_matches_plain(gpu, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("broken", ["pointer", "strides"])
+@pytest.mark.parametrize("broken", ["pointer", "strides", "strides_hd256"])
 def test_flash_view_off_the_16_byte_rule_takes_the_cuda_core_body(gpu,
                                                                    broken):
-    """A bf16 view at head_dim 64 whose pointers sit 8 bytes off a 16-byte
-    boundary, or whose strides are not multiples of 16 bytes, is read by
-    neither TMA nor the mma.sync body's 16-byte loads."""
-    B, T, H, KV, hd = 2, 200, 6, 2, 64
+    """A bf16 view at head_dim 64 (or 256) whose pointers sit 8 bytes off
+    a 16-byte boundary, or whose strides are not multiples of 16 bytes, is
+    read by neither TMA nor the mma.sync body's 16-byte loads."""
+    B, T, H, KV, hd = 2, 200, 6, 2, 256 if broken == "strides_hd256" else 64
     pad = 8 if broken == "pointer" else 4
     q, k, v = _inputs(5, [(B, T, H, hd + pad), (B, T, KV, hd + pad),
                           (B, T, KV, hd + pad)], "bfloat16", gpu)
@@ -185,14 +197,23 @@ def test_flash_view_off_the_16_byte_rule_takes_the_cuda_core_body(gpu,
     ("bfloat16", (32, 64), ValueError),      # no body has it
     ("bfloat16", (21, 64), RuntimeError),    # the wgmma body lacks it
     ("float32", (128, 128), RuntimeError),   # the CUDA-core body lacks it
+    ("bfloat16", (64, 128, 256), ValueError),   # no 128-key tile at hd 256
 ], ids=str)
 def test_flash_tile_the_body_lacks_raises_without_a_launch(gpu, dtype, tile,
                                                            error):
-    q, k, v = _inputs(6, [(1, 64, 6, 64), (1, 64, 2, 64), (1, 64, 2, 64)],
+    """(block_q, block_k[, head_dim]); at head_dim 256 the launcher, called
+    past the wrapper's check, refuses the tile too."""
+    hd = tile[2] if len(tile) > 2 else 64
+    q, k, v = _inputs(6, [(1, 64, 6, hd), (1, 64, 2, hd), (1, 64, 2, hd)],
                       dtype, gpu)
     before = flash_kernel.LAUNCHES
     with pytest.raises(error, match="tile"):
         flash_ops.flash_attention(q, k, v, block_q=tile[0], block_k=tile[1])
+    if hd == 256:
+        with pytest.raises(RuntimeError, match="tile"):
+            flash_kernel.flash_attention_fwd(
+                q, k, v, causal=True, window=None, logit_cap=None,
+                block_q=tile[0], block_k=tile[1])
     assert flash_kernel.LAUNCHES == before
 
 

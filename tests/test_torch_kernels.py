@@ -121,23 +121,27 @@ def test_unsupported_inputs_raise(bad):
         dec_ops.decode_attention_kvmajor(q[:, 0].contiguous(), kc, vc, 3)
 
 
-# (block_q, block_k) the wrapper takes at G 3: the wgmma body's tiles, the
-# other bodies' one tile (21 x 64), either side left to the cache or the
-# default; and tiles no body has
+# (block_q, block_k) the wrapper takes at G 3 and head_dim 64: the wgmma
+# body's tiles, the other bodies' one tile (21 x 64), either side left to
+# the cache or the default; and tiles no body has.  (block_q, block_k,
+# head_dim) at head_dim 256, where the wgmma body has 64-key tiles only
 TILES_TAKEN = [(64, 64), (64, 128), (128, 64), (128, 128), (21, 64),
-               (21, None), (None, 128), (None, None)]
+               (21, None), (None, 128), (None, None), (128, 64, 256),
+               (None, 64, 256), (21, 64, 256)]
 TILES_REFUSED = [(32, 64), (64, 32), (256, 128), (96, None), (None, 21),
-                 (21, 128), (128, 96)]
+                 (21, 128), (128, 96), (64, 128, 256), (None, 128, 256),
+                 (128, 128, 256)]
 
 
 @pytest.mark.parametrize("tile", TILES_TAKEN + TILES_REFUSED, ids=str)
 def test_flash_wrapper_validates_the_tile(tile):
-    """Off the CPU a tile the kernel has is taken and any other raises
-    before anything runs (a meta tensor, which then finds no kernel); on
-    the CPU the plain version runs whatever the tile, as the reference's
-    wrapper takes any tile."""
+    """Off the CPU a tile the kernel has at the call's head_dim is taken and
+    any other raises before anything runs (a meta tensor, which then finds
+    no kernel); on the CPU the plain version runs whatever the tile, as the
+    reference's wrapper takes any tile."""
+    hd = tile[2] if len(tile) > 2 else 64
     (_, qt), (_, kt), (_, vt) = _inputs(
-        6, [(1, 40, 6, 64), (1, 40, 2, 64), (1, 40, 2, 64)], "bfloat16")
+        6, [(1, 40, 6, hd), (1, 40, 2, hd), (1, 40, 2, hd)], "bfloat16")
     out = flash_ops.flash_attention(qt, kt, vt, block_q=tile[0],
                                     block_k=tile[1])
     assert torch.equal(out, attention_ref(qt, kt, vt))
@@ -150,9 +154,10 @@ def test_flash_wrapper_validates_the_tile(tile):
 
 def test_flash_launcher_constants_match_the_cuda_source():
     """The wgmma constants the autotuner prices tiles by without a built
-    library (tiles, default tile, stages) are the CUDA source's, and each
-    tile pair is an instance ``dispatch_wgmma`` launches, at head_dim 64
-    and 128.  On the card ``_lib`` holds them against the library too."""
+    library (tiles by head_dim, default tile, stages) are the CUDA
+    source's: its instance list, which ``dispatch_wgmma`` launches and
+    ``flash_wgmma_config`` reports, has the 10 tiles at head_dim 64, 128
+    and 256.  On the card ``_lib`` holds them against the library too."""
     import re
     from pathlib import Path
 
@@ -160,16 +165,65 @@ def test_flash_launcher_constants_match_the_cuda_source():
         flash_attention as flash_kernel
     src = (Path(flash_kernel.__file__).resolve().parents[1] / "csrc"
            / "flash_attention.cu").read_text()
-    tiles = re.search(r"WG_TILES\[2\] = \{(\d+), (\d+)\}", src).groups()
+    body = src[src.index("#define FLASH_WGMMA_INSTANCES(X)"):]
+    body = body[:body.index("\n\n")]
+    rows = [tuple(map(int, m)) for m in
+            re.findall(r"X\((\d+), (\d+), (\d+)\)", body)]
     bm, bn = re.search(r"WG_BM = (\d+), WG_BN = (\d+);", src).groups()
     stages = re.search(r"WG_STAGES = (\d+);", src).group(1)
-    assert tuple(map(int, tiles)) == flash_kernel.TILES
+    assert len(rows) == 10
+    assert rows == [(hd, bq, bk) for hd, tiles in flash_kernel.TILES.items()
+                    for bq, bk in tiles]
+    assert {hd: [r[1:] for r in rows if r[0] == hd] for hd in (64, 128)} \
+        == {hd: [(bq, bk) for bq in (64, 128) for bk in (64, 128)]
+            for hd in (64, 128)}
+    assert [r[1:] for r in rows if r[0] == 256] == [(64, 64), (128, 64)]
     assert (int(bm), int(bn)) == flash_kernel.DEFAULT_TILE
+    assert all(flash_kernel.DEFAULT_TILE in t
+               for t in flash_kernel.TILES.values())
     assert int(stages) == flash_kernel.STAGES
-    instances = {tuple(map(int, m)) for m in
-                 re.findall(r"FLASH_WGMMA\((\d+), (\d+), (\d+)\)", src)}
-    assert instances == {(hd, bq, bk) for hd in (64, 128)
-                         for bq in flash_kernel.TILES
-                         for bk in flash_kernel.TILES}
     assert flash_kernel.wgmma_smem(64, 64, 64) == 1024 + 2 * 64 * (
         64 + 2 * 2 * 64) + 8 * 5
+    # head_dim 256: the two tiles fit a block's 232,448 bytes, a 128-key
+    # tile does not
+    assert [flash_kernel.wgmma_smem(256, bq, bk)
+            for bq, bk in ((64, 64), (128, 64), (64, 128))] == \
+        [164_904, 197_672, 295_976]
+    assert all(flash_kernel.wgmma_smem(hd, bq, bk) <= 232_448
+               for hd, tiles in flash_kernel.TILES.items()
+               for bq, bk in tiles)
+
+
+# head_dim 256 at Gemma-2-2B's group (G 2) and cap (50), apart from the
+# reference's list above: (B, Tq, Tk, H, KV, hd, causal, window, cap,
+# q_offset).  A window of 32 that cuts the 64-key tiles; Tq not a multiple
+# of 64; q_offset with Tk > Tq under a window of 128
+FLASH_256_CASES = [
+    (1, 192, 192, 4, 2, 256, True, 32, 50.0, 0),
+    (2, 100, 100, 4, 2, 256, True, None, 50.0, 0),
+    (1, 70, 200, 4, 2, 256, True, 128, 50.0, 130),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_256_CASES, ids=str)
+def test_plain_flash_at_head_dim_256_matches_pallas_interpret(case):
+    """The port's K1 on CPU tensors (its plain version) against the Pallas
+    kernel in interpret mode, float32."""
+    B, Tq, Tk, H, KV, hd, causal, window, cap, q_offset = case
+    (qj, qt), (kj, kt), (vj, vt) = _inputs(
+        7, [(B, Tq, H, hd), (B, Tk, KV, hd), (B, Tk, KV, hd)], "float32")
+    kw = dict(causal=causal, window=window, logit_cap=cap, q_offset=q_offset)
+    _close(flash_ops.flash_attention(qt, kt, vt, **kw),
+           jax_pallas_flash(qj, kj, vj, **kw), 2e-5)
+
+
+@pytest.mark.parametrize("case", FLASH_256_CASES, ids=str)
+def test_plain_flash_at_head_dim_256_matches_reference_bf16(case):
+    """The same cases in bfloat16 against the reference's ``attention_ref``
+    at its bf16 tolerance."""
+    B, Tq, Tk, H, KV, hd, causal, window, cap, q_offset = case
+    (qj, qt), (kj, kt), (vj, vt) = _inputs(
+        8, [(B, Tq, H, hd), (B, Tk, KV, hd), (B, Tk, KV, hd)], "bfloat16")
+    kw = dict(causal=causal, window=window, logit_cap=cap, q_offset=q_offset)
+    _close(flash_ops.flash_attention(qt, kt, vt, **kw),
+           _jax_attention_ref(qj, kj, vj, **kw), 2e-2)
