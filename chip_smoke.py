@@ -118,8 +118,9 @@ stale ``.profile_store/`` in the working directory changes nothing:
      collective over a step (``CommDebugMode``); ``make_train_step`` at 8 x
      256 (4 microbatches) in float32 at 2 layers against the composed
      microbatch step at 1e-4, then 5 bf16 steps at full width timed (2
-     also through the composed step); eager host-clock ms of the sharded
-     prefill and step beside the unsharded ones; a JSON line;
+     also through the composed step), each run's peak memory; eager
+     host-clock ms of the sharded prefill and step beside the unsharded
+     ones; a JSON line;
   10. examples (``phase_examples``): ``repro_torch.examples.quickstart``
      as shipped (TINY) and its ``run`` at full width (SmolLM-360M, bf16,
      the kernel path, the example's ``(n, 32)`` token batches served by a
@@ -130,8 +131,9 @@ stale ``.profile_store/`` in the working directory changes nothing:
      against the plain path within the model phase's bf16 bound; then,
      after a throwaway executor captured each bucket once,
      ``warm_start.serve_once`` cold and warm against one store (a bucket
-     miss a CUDA-graph capture): the warm run strictly fewer probes,
-     captures and stall seconds; a JSON line;
+     miss a CUDA-graph capture), in ``WARM_PAIRS`` pairs: the warm run
+     strictly fewer probes and captures in each, and its median stall
+     seconds strictly below the cold runs'; a JSON line;
   11. autotune: ``serve --autotune``'s tuning of the serving shape classes
      (SmolLM-360M prefill, decode and paged decode; Mamba2-1.3B's SSD
      scan), every candidate timed through its kernel on the device alone
@@ -171,6 +173,7 @@ import io
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -338,6 +341,11 @@ PAGED_VIEW = (3, 512, 6, 2, 64, 32, (512, 200, 0), None, 30.0)
 ARCH, BATCH, PROMPT, STEPS = "smollm_360m", 8, 512, 32
 # the examples phase: quickstart's buckets (bs up to 32 x mtl up to 4)
 QUICK_MAX_ITEMS = 32 * 4
+# the warm start's cold / warm pairs, each on a store of its own: a
+# run's stall seconds are 8-10 captures of about 1 ms of host time,
+# in which one capture on a shared host can take 10-150 ms, so the
+# pairs' medians are compared
+WARM_PAIRS = 5
 SSM_ARCH, HYBRID_ARCH = "mamba2_1p3b", "zamba2_1p2b"
 # the vision stub (256 of a prompt's 512 positions are patches) and the
 # encoder-decoder (1500 encoder frames and a 512-token decoder prompt)
@@ -2397,7 +2405,9 @@ def _dist_train(minfo) -> dict:
     """``make_train_step`` at ``TRAIN_BATCH`` x ``TRAIN_SEQ`` with its
     default microbatches: float32 at ``TRAIN_CUT`` layers against
     ``_composed_train_step``; then bf16 at full width, timed beside the
-    composed step."""
+    composed step, each with the peak memory its timed steps allocate.
+    The step donates its parameters and optimizer state (it writes the
+    new values into them), so it is given copies."""
     shape = InputShape("dist", TRAIN_SEQ, TRAIN_BATCH, "train")
     tokens = torch.from_numpy(next(iter(TokenStream(DataConfig(
         vocab_size=get_config(ARCH).vocab_size, seq_len=TRAIN_SEQ,
@@ -2412,8 +2422,8 @@ def _dist_train(minfo) -> dict:
                                                 lr=TRAIN_LR)
         params = api.init_params(cfg, seed=0)
         opt = adamw.init(params)
-        args = [shd.distribute_tree(params, t_in[0], minfo),
-                shd.distribute_tree(opt, t_in[1], minfo),
+        args = [shd.distribute_tree(_clone(params), t_in[0], minfo),
+                shd.distribute_tree(adamw.init(params), t_in[1], minfo),
                 shd.distribute_tree({"tokens": tokens}, t_in[2], minfo)]
         if cut:
             new, _, m = tfn(*args)
@@ -2429,23 +2439,33 @@ def _dist_train(minfo) -> dict:
                               "loss_composed": want_loss.item()}
             continue
         ms, ms_plain, losses = [], [], []
-        for i in range(DIST_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for _ in range(DIST_TRAIN_STEPS):
             t0 = time.perf_counter()
             args[0], args[1], m = tfn(*args)
             losses.append(m["loss"].full_tensor().item())
             ms.append((time.perf_counter() - t0) * 1e3)
-            if i >= DIST_COMPOSED_STEPS:
-                continue
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        base_plain = torch.cuda.memory_allocated()
+        for _ in range(DIST_COMPOSED_STEPS):
             t0 = time.perf_counter()
             params, opt, loss, _ = _composed_train_step(params, opt, tokens,
                                                         cfg, nm)
             loss.item()
             ms_plain.append((time.perf_counter() - t0) * 1e3)
+        peak_plain = torch.cuda.max_memory_allocated()
         assert all(math.isfinite(x) for x in losses), losses
         out["bfloat16"] = {"microbatches": nm, "losses": losses,
                            "step_ms": sorted(ms)[len(ms) // 2],
                            "step_ms_composed": sorted(ms_plain)[
-                               len(ms_plain) // 2]}
+                               len(ms_plain) // 2],
+                           "peak_gb": peak / 1e9,
+                           "peak_gb_composed": peak_plain / 1e9,
+                           "held_before_gb": base / 1e9,
+                           "held_before_gb_composed": base_plain / 1e9}
     return out
 
 
@@ -2472,8 +2492,9 @@ def phase_dist() -> dict:
          the same microbatches and ``adamw.update``
          (``_composed_train_step``); bf16 at full width:
          ``DIST_TRAIN_STEPS`` steps, each timed on the host clock (ended
-         by reading the loss), the first ``DIST_COMPOSED_STEPS`` also
-         through the composed step.
+         by reading the loss), then ``DIST_COMPOSED_STEPS`` through the
+         composed step; each run's peak allocated memory
+         (``max_memory_allocated`` after a reset), printed with no bound.
     Prints a JSON line; returns the serving run's launch counts."""
     t_phase = time.perf_counter()
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dist_")
@@ -2512,7 +2533,12 @@ def phase_dist() -> dict:
           f"{DIST_TRAIN_STEPS} steps, losses "
           f"{', '.join(f'{x:.4f}' for x in t['bfloat16']['losses'])}: step "
           f"{t['bfloat16']['step_ms']:.1f} ms sharded / "
-          f"{t['bfloat16']['step_ms_composed']:.1f} ms composed (median)")
+          f"{t['bfloat16']['step_ms_composed']:.1f} ms composed (median); "
+          f"peak allocated over the timed steps "
+          f"{t['bfloat16']['peak_gb']:.2f} GB sharded / "
+          f"{t['bfloat16']['peak_gb_composed']:.2f} GB composed (held "
+          f"before them {t['bfloat16']['held_before_gb']:.2f} / "
+          f"{t['bfloat16']['held_before_gb_composed']:.2f} GB)")
     out["seconds"] = time.perf_counter() - t_phase
     print(json.dumps({"dist": out}))
     return s["launches"]
@@ -2567,8 +2593,11 @@ def phase_examples() -> dict:
          phase takes 8 blocks of 64 of its 512);
       3. ``warm_start.serve_once`` cold, then warm, against one temporary
          store on the card (a bucket miss is a CUDA-graph capture), after
-         a throwaway executor captured every bucket once: the warm run
-         takes strictly fewer probes, captures and stall seconds.
+         a throwaway executor captured every bucket once, ``WARM_PAIRS``
+         times, each pair on a store of its own: in every pair the warm
+         run loads the cold run's row and takes strictly fewer probes and
+         captures, and over the pairs its median stall seconds are
+         strictly below the cold runs' median.
     Prints a JSON line; returns the full-width run's launches."""
     t_phase = time.perf_counter()
     out = io.StringIO()
@@ -2651,22 +2680,31 @@ def phase_examples() -> dict:
     for n in lab.buckets:
         lab.warmup(n, 1)
     del lab
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_warm_") as store:
-        cold = warm_start.serve_once(store, device=DEV)
-        warm = warm_start.serve_once(store, device=DEV)
-    for label, r in (("cold", cold), ("warm", warm)):
-        with contextlib.redirect_stdout(out):
-            warm_start.show(label, r)
-        print(f"[examples] warm_start on the card: "
-              f"{out.getvalue().splitlines()[-1].strip()}; "
-              f"{r['compile_stall_s'] / r['compiles'] * 1e3:.2f} ms a "
-              f"capture")
-    print(f"[examples] warm_start stall seconds warm / cold "
-          f"{warm['compile_stall_s'] / cold['compile_stall_s']:.3f} "
-          f"(captures {warm['compiles']} / {cold['compiles']})")
-    assert warm["loaded_rows"] >= 1 and warm["probes"] < cold["probes"] \
-        and warm["compiles"] < cold["compiles"] \
-        and warm["compile_stall_s"] < cold["compile_stall_s"], (cold, warm)
+    pairs = []
+    for i in range(WARM_PAIRS):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_warm_") as store:
+            cold = warm_start.serve_once(store, device=DEV)
+            warm = warm_start.serve_once(store, device=DEV)
+        pairs.append((cold, warm))
+        for label, r in (("cold", cold), ("warm", warm)):
+            with contextlib.redirect_stdout(out):
+                warm_start.show(label, r)
+            print(f"[examples] warm_start on the card, pair {i}: "
+                  f"{out.getvalue().splitlines()[-1].strip()}; "
+                  f"{r['compile_stall_s'] / r['compiles'] * 1e3:.2f} ms a "
+                  f"capture")
+        assert cold["loaded_rows"] == 0 and warm["loaded_rows"] >= 1 \
+            and warm["probes"] < cold["probes"] \
+            and warm["compiles"] < cold["compiles"], (i, cold, warm)
+    stall = {label: statistics.median(p[j]["compile_stall_s"] for p in pairs)
+             for j, label in enumerate(("cold", "warm"))}
+    print(f"[examples] warm_start stall seconds warm / cold, median of "
+          f"{WARM_PAIRS} pairs: {stall['warm'] * 1e3:.3f} / "
+          f"{stall['cold'] * 1e3:.3f} ms = "
+          f"{stall['warm'] / stall['cold']:.3f}; by pair "
+          f"{[round(w['compile_stall_s'] / c['compile_stall_s'], 3)
+              for c, w in pairs]}")
+    assert stall["warm"] < stall["cold"], (stall, pairs)
     launches = {"flash": replayed["flash"]}
     rep = {"quickstart_tiny_s": t_tiny,
            "quickstart": {"bucket_s": bucket_s,
@@ -2682,9 +2720,12 @@ def phase_examples() -> dict:
                           "logits_err": err, "bound": bound, "floor": floor,
                           "max_abs_logit": peak,
                           "run_s": t_run},
-           "warm_start": {k: {kk: (list(v) if isinstance(v, tuple) else v)
-                              for kk, v in r.items()}
-                          for k, r in (("cold", cold), ("warm", warm))}}
+           "warm_start": {"pairs": [
+               {k: {kk: (list(v) if isinstance(v, tuple) else v)
+                    for kk, v in r.items()}
+                for k, r in (("cold", cold), ("warm", warm))}
+               for cold, warm in pairs],
+               "median_stall_s": stall}}
     rep["seconds"] = time.perf_counter() - t_phase
     print(f"[examples] phase {rep['seconds']:.1f}s")
     print(json.dumps({"examples": rep}))

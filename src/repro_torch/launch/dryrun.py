@@ -13,7 +13,8 @@ The step (``launch/steps.py``) is built on meta tensors laid out by the
 reference's sharding rules and run as rank 0 (``perf.roofline``), once
 under the op counter and the memory tracker together: its memory
 (argument, output and alias bytes are the local shards', so exact; temp
-the peak ``MemTracker`` sees over the run) and its roofline (FLOPs,
+the peak ``MemTracker`` sees over the run of what the step allocates,
+not its arguments' own storage) and its roofline (FLOPs,
 device-memory bytes and collective bytes of rank 0's program, by
 ``perf.op_analysis``, priced on the card's constants).  Each layer group
 is counted at one to three layers and grown to its depth, as the
@@ -27,6 +28,8 @@ the reference's ``kernel_impl="xla"``.
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch ID]
         [--shape NAME] [--mesh single|multi|both] [--out DIR]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --report --out DIR
+        [--beside REFERENCE_DIR]
 """
 
 from __future__ import annotations
@@ -162,10 +165,12 @@ def analyze_step(cfg, minfo, shape, chips: int, *, fast: bool = True,
     collectives and argument / output / alias bytes, the same for every
     layer past the first, and the whole group adds that for each of its
     layers past the third.  The temp bytes are a peak over the run: each
-    phase of the step (``roofline.PhaseMarks``: a layer group; a train
-    step's gathering, forward, backward, accumulation, reduction, update)
-    has its own peak, which grows by its own amount with each layer, and
-    the record's is the largest of the phases' peaks so grown.
+    phase of the step (``roofline.PhaseMarks``: a layer group, with the
+    gather of each of its layers (``steps.layer_gather``) inside it; the
+    gather of the leaves outside the groups; a train step's forward,
+    backward, accumulation, update) has its own peak, which grows by its
+    own amount with each layer, and the record's is the largest of the
+    phases' peaks so grown.
 
     A train step's microbatches are one program too: from the third on,
     each holds what the one before held and adds what it added.  So a
@@ -333,22 +338,36 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
 CARD_BYTES = 80e9          # one H100's device memory
 
 
-def report(out_dir: str) -> str:
+def _fit(r: dict):
+    """An OK record's per-rank argument + temp bytes (temp 0 where it has
+    none), else None."""
+    if r.get("status") != "OK":
+        return None
+    m = r["memory_analysis"]
+    return m["argument_size"] + (m["temp_size"] or 0.0)
+
+
+def report(out_dir: str, beside: str | None = None) -> str:
     """The records under ``out_dir`` as a markdown table: per-rank
     argument + temp bytes against one card's 80 GB, the dominant roofline
-    term, the useful-FLOPs ratio and the record's seconds."""
+    term, the useful-FLOPs ratio and the record's seconds.  ``beside``: a
+    directory of other records of the same names (the reference's
+    ``repro.launch.dryrun`` records), whose argument + temp bytes are set
+    beside each, with the ratio."""
     import glob
     import json
+    extra = " reference (GB) | port / reference |" if beside else ""
     rows = ["| arch | shape | mesh | status | args + temp per rank (GB) "
-            "| of 80 GB | dominant | useful | s |",
-            "|---|---|---|---|---|---|---|---|---|"]
+            "| of 80 GB | dominant | useful | s |" + extra,
+            "|---|---|---|---|---|---|---|---|---|" + (
+                "---|---|" if beside else "")]
     for path in sorted(glob.glob(os.path.join(out_dir, "*.json"))):
         with open(path) as f:
             r = json.load(f)
         cells = [r["arch"], r["shape"], r["mesh"], r["status"]]
-        if r["status"] == "OK":
+        fit = _fit(r)
+        if fit is not None:
             m, rl = r["memory_analysis"], r["roofline"]
-            fit = m["argument_size"] + (m["temp_size"] or 0.0)
             cells += [f"{fit / 1e9:.2f}" + ("" if m["temp_size"] is not None
                                              else " (no temp)"),
                       f"{fit / CARD_BYTES:.1%}", rl["dominant"],
@@ -356,6 +375,15 @@ def report(out_dir: str) -> str:
                       f"{r['lower_s'] + r['compile_s']:.1f}"]
         else:
             cells += ["", "", "", "", ""]
+        if beside:
+            other = os.path.join(beside, os.path.basename(path))
+            ref = None
+            if os.path.exists(other):
+                with open(other) as f:
+                    ref = _fit(json.load(f))
+            cells += ["" if ref is None else f"{ref / 1e9:.2f}",
+                      "" if ref is None or fit is None
+                      else f"{fit / ref:.2f}"]
         rows.append("| " + " | ".join(cells) + " |")
     return "\n".join(rows)
 
@@ -377,9 +405,12 @@ def main() -> None:
     ap.add_argument("--report", action="store_true",
                     help="print the records under --out as a table; run "
                          "nothing")
+    ap.add_argument("--beside", default=None,
+                    help="with --report: a directory of the reference's "
+                         "records, set beside the port's")
     args = ap.parse_args()
     if args.report:
-        print(report(args.out))
+        print(report(args.out, args.beside))
         return
 
     step_kwargs = {}

@@ -16,13 +16,14 @@ reference jits each function; here each runs eagerly, op by op.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs.base import InputShape, ModelConfig
-from repro_torch.distributed import cache_update, is_dtensor
+from repro_torch.distributed import cache_update, fsdp, is_dtensor
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import api
 from repro_torch.models.layers import marked
@@ -50,27 +51,18 @@ def _replicated(minfo: shd.MeshInfo) -> tuple:
     return shd.to_placements((), minfo.mesh)
 
 
-def gathered(params, minfo: shd.MeshInfo):
-    """The params with their FSDP shards gathered: every placement on a
-    batch axis ('pod', 'data') made whole, the 'model' axis's TP kept.
-    A partitioner all-gathers an FSDP-sharded weight where it is used, so
-    each rank computes on its own batch rows; DTensor, left to itself,
-    may instead keep the weight sharded and gather the activations (a
-    weight-stationary product), which computes on the whole batch.  The
-    gradients of the gathered leaves, summed over the microbatches, are
-    reduced back onto the params' shards by the caller, as the
-    reference's step constrains its summed gradients.  All the params are
-    gathered at once, not layer by layer as the reference's compiled step
-    does, so a rank holds its TP part of every layer at a time."""
-    from torch.distributed.tensor import Replicate
-    names = minfo.mesh.mesh_dim_names
-
-    def gather(t):
-        want = tuple(Replicate() if names[i] in minfo.batch_axes else p
-                     for i, p in enumerate(t.placements))
-        return t if want == tuple(t.placements) else t.redistribute(
-            minfo.mesh, want)
-    return adamw.tree_map(gather, params)
+def layer_gather(minfo: shd.MeshInfo):
+    """The per-layer FSDP gather the sharded steps hand the model
+    (``gather=``): a layer's parameters (or the leaves outside the layer
+    groups) made whole on the batch axes ('pod', 'data'), the 'model'
+    axis's TP kept (``fsdp.gathered``).  A partitioner all-gathers an
+    FSDP-sharded weight where it is used, so each rank computes on its
+    own batch rows; DTensor, left to itself, may instead keep the weight
+    sharded and gather the activations (a weight-stationary product),
+    which computes on the whole batch.  The model applies it inside each
+    layer body, so a rank holds one gathered layer at a time, and its
+    backward takes each layer's gradient onto the params' shards."""
+    return functools.partial(fsdp.gathered, batch_axes=minfo.batch_axes)
 
 
 def _device(t) -> torch.device:
@@ -109,10 +101,20 @@ def make_train_step(cfg: ModelConfig, minfo: shd.MeshInfo, shape: InputShape,
                     param_mode: str = "train", mark=None):
     """``fn(params, opt_state, batch) -> (params, opt_state, {'loss',
     'grad_norm'})``: the gradients of ``nm`` microbatches summed in
-    float32, each divided by ``nm``, laid out as the params, then
-    ``adamw.update``.  ``mark``: entered around each phase of the step
-    (gathering, forward, backward, accumulation, reduction, update; each
-    layer group: ``layers.marked``), as the dry-run takes them apart."""
+    float32, each divided by ``nm``, then AdamW.  The model gathers each
+    layer's FSDP shards as it reaches the layer (``layer_gather``), so
+    the gradients come out of the backward laid out as the params and
+    are summed into one sharded float32 tree, in place.  The step
+    donates ``params`` and ``opt_state``, as the reference's jit does:
+    ``adamw.update_`` writes the new values into them, a stacked leaf one
+    layer at a time, and they are returned.  ``mark``: entered around
+    each phase of the step (the forward, the backward, the accumulation,
+    the update; each layer group and its backward: ``layers.marked``,
+    ``layers.backward_marked``; in the forward, the gathering of the
+    leaves outside the layer groups), as the dry-run takes them apart;
+    each layer's gathering is counted in its group's phase in the forward
+    and in its group's backward phase, where the remat gathers it
+    again."""
     if num_microbatches is None:
         num_microbatches = default_microbatches(cfg, shape, minfo)
     nm = num_microbatches
@@ -124,25 +126,33 @@ def make_train_step(cfg: ModelConfig, minfo: shd.MeshInfo, shape: InputShape,
     bspec = shd.batch_spec_axes(minfo, shape.global_batch // nm)
     p_sh = shd.to_shardings(p_specs, minfo)
     rep = _replicated(minfo)
+    gather = layer_gather(minfo)
+    stacked = api.stacked(abstract_params)
+
+    def add(p, g, acc=None):
+        """The running sum ``acc`` plus ``g / nm`` in float32, in place;
+        ``g`` must be laid out as its parameter ``p``."""
+        if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+            raise ValueError(f"a gradient laid out as {g.placements}, its "
+                             f"parameter as {p.placements}")
+        g = g.float() / nm
+        return g if acc is None else acc.add_(g)
 
     def train_step(params, opt_state, batch):
         with implicit_replication(), torch.enable_grad():
             grads, loss = None, 0.0
             for mb in microbatches(batch, nm, minfo, bspec):
-                with marked(mark, "gather"):
-                    full = gathered(params, minfo)
-                mb_loss, _, g = loss_and_grads(full, mb, cfg, remat=remat,
-                                               bspec=bspec, mark=mark)
+                mb_loss, _, g = loss_and_grads(params, mb, cfg, remat=remat,
+                                               bspec=bspec, gather=gather,
+                                               mark=mark)
                 with marked(mark, "accumulate"):
-                    g = adamw.tree_map(lambda t: t.float() / nm, g)
-                    grads = g if grads is None else adamw.tree_map(
-                        torch.add, grads, g)
+                    grads = adamw.tree_map(add, params, g, *(
+                        () if grads is None else (grads,)))
                     loss = loss + mb_loss / nm
-            with marked(mark, "reduce"):  # keep grads sharded like params
-                grads = shd.distribute_tree(grads, p_sh, minfo)
+                del g       # not held through the next microbatch
             with marked(mark, "update"):
-                new_params, new_opt, gnorm = adamw.update(grads, opt_state,
-                                                          params, lr=lr)
+                new_params, new_opt, gnorm = adamw.update_(
+                    grads, opt_state, params, stacked=stacked, lr=lr)
             metrics = {"loss": shd.distribute(loss, rep, minfo),
                        "grad_norm": shd.distribute(gnorm, rep, minfo)}
         return new_params, new_opt, metrics
@@ -176,7 +186,9 @@ def make_prefill_step(cfg: ModelConfig, minfo: shd.MeshInfo,
                       param_mode: str = "infer", mark=None):
     """``fn(params, batch) -> (last logits, cache)``: the cache made as
     zeros laid out by the reference's cache specs, each rank allocating
-    its own shard, and filled in place.  ``mark`` as the train step's."""
+    its own shard, and filled in place; the params' FSDP shards (where
+    ``param_mode`` gives them) gathered layer by layer
+    (``layer_gather``).  ``mark`` as the train step's."""
     capacity = capacity or shape.seq_len
     B = shape.global_batch
     abstract_params = api.param_specs(cfg)
@@ -189,15 +201,16 @@ def make_prefill_step(cfg: ModelConfig, minfo: shd.MeshInfo,
     bspec = shd.batch_spec_axes(minfo, B)
     logits_sh = shd.to_placements((bspec, None), minfo.mesh)
     seq_axis = prefill_seq_axis(cfg, minfo, shape)
+    gather = layer_gather(minfo)
 
     def prefill_step(params, batch):
         with implicit_replication():
             cache = shd.zeros(cache_abs, c_sh, minfo,
                               _device(batch["tokens"]))
-            logits, cache = api.prefill(gathered(params, minfo), batch, cfg,
-                                        capacity,
+            logits, cache = api.prefill(params, batch, cfg, capacity,
                                         bspec=bspec, seq_axis=seq_axis,
-                                        cache=cache, mark=mark)
+                                        cache=cache, gather=gather,
+                                        mark=mark)
             return shd.distribute(logits, logits_sh, minfo), cache
 
     in_shardings = (shd.to_shardings(p_specs, minfo),
@@ -219,7 +232,8 @@ def make_decode_step(cfg: ModelConfig, minfo: shd.MeshInfo,
     sliding-window layers, and TP-only inference params.
     ``sharded_append``: the decode step leaves the cache unwritten and
     returns the new tokens' deltas, which ``cache_update`` appends into
-    each rank's own shard (zero collectives).  ``mark`` as the train
+    each rank's own shard (zero collectives).  The params' FSDP shards
+    are gathered layer by layer, as the prefill's.  ``mark`` as the train
     step's (each layer group, the append)."""
     B, S = shape.global_batch, shape.seq_len
     abstract_params = api.param_specs(cfg)
@@ -233,20 +247,21 @@ def make_decode_step(cfg: ModelConfig, minfo: shd.MeshInfo,
     bspec = shd.batch_spec_axes(minfo, B)
     tok_sh = shd.to_placements((bspec,), minfo.mesh)
     logits_sh = shd.to_placements((bspec, None), minfo.mesh)
+    gather = layer_gather(minfo)
 
     def decode(params, cache, tokens, pos):
         with implicit_replication():
-            params = gathered(params, minfo)
             if not sharded_append:
                 logits, cache = api.decode_step(params, cache, tokens, pos,
                                                 cfg, windowed=windowed_cache,
-                                                bspec=bspec, mark=mark)
+                                                bspec=bspec, gather=gather,
+                                                mark=mark)
             else:
                 logits, deltas = api.decode_step(params, cache, tokens, pos,
                                                  cfg, windowed=windowed_cache,
                                                  bspec=bspec,
                                                  return_deltas=True,
-                                                 mark=mark)
+                                                 gather=gather, mark=mark)
                 with marked(mark, "append"):
                     cache_update.apply_cache_deltas(cache, deltas, pos)
             return shd.distribute(logits, logits_sh, minfo), cache

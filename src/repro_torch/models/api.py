@@ -11,7 +11,10 @@ SSM, hybrid and the vision stub: ``transformer``) and the encoder-decoder
 
 Each also takes the reference's mesh arguments (``bspec``; ``seq_axis``
 for prefill, ``return_deltas`` for decode) and works on DTensors laid out
-on a ``DeviceMesh`` (``launch/steps.py``).
+on a ``DeviceMesh`` (``launch/steps.py``); ``gather`` is the sharded
+steps' per-layer FSDP gather (``distributed.fsdp``), which the models
+apply to each layer's parameters as they reach the layer and to the
+leaves outside the layer groups once a call.
   init_cache(cfg, batch, capacity, device=None)     -> cache
   make_batch(cfg, shape, seed=0, device=None)       -> {'tokens': ..., ...}
   generate(params, batch, cfg, steps)               -> (B, steps + 1) tokens
@@ -72,42 +75,61 @@ def _given(**kw) -> dict:
 
 def _marks(cfg: ModelConfig, mark) -> dict:
     """``mark`` for the decoder-only models, which enter it around each
-    layer group (``layers.marked``); the encoder-decoder marks none."""
+    layer group (``layers.marked``); the encoder-decoder marks its
+    prefill and decode none (its train loss marks its two stacks)."""
     return {} if cfg.is_encoder_decoder else _given(mark=mark)
 
 
 def train_loss(params, batch, cfg: ModelConfig, *, remat: bool = True,
-               bspec=None, mark=None):
+               bspec=None, gather=None, mark=None):
     """Next-token loss of ``batch`` (the reference's ``train_loss``),
     differentiable by ``torch.autograd``; takes no kernel.  ``bspec``:
     the mesh axes the activations' batch is constrained to."""
     return _model(cfg).train_loss(params, batch, cfg, remat=remat,
-                                  **_given(bspec=bspec), **_marks(cfg, mark))
+                                  **_given(bspec=bspec, gather=gather,
+                                           mark=mark))
 
 
 def prefill(params, batch, cfg: ModelConfig, capacity: int, bspec=None,
-            seq_axis=None, cache=None, mark=None):
+            seq_axis=None, cache=None, gather=None, mark=None):
     """``cache``: a zero cache to fill in place (a mesh's DTensors); the
     encoder-decoder takes no ``seq_axis``, as the reference's."""
     if cfg.is_encoder_decoder:
         return encdec.prefill(params, batch, cfg, capacity,
-                              **_given(bspec=bspec, cache=cache))
+                              **_given(bspec=bspec, cache=cache,
+                                       gather=gather))
     return transformer.prefill(params, batch, cfg, capacity,
                                **_given(bspec=bspec, seq_axis=seq_axis,
-                                        cache=cache, mark=mark))
+                                        cache=cache, gather=gather,
+                                        mark=mark))
 
 
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig,
                 windowed: bool = False, bspec=None,
-                return_deltas: bool = False, mark=None):
+                return_deltas: bool = False, gather=None, mark=None):
     """``return_deltas``: the cache is left unwritten and the second
     result is the reference's deltas (``transformer.run_group_decode``)."""
-    kw = _given(bspec=bspec, return_deltas=return_deltas)
+    kw = _given(bspec=bspec, return_deltas=return_deltas, gather=gather)
     if cfg.is_encoder_decoder:
         return encdec.decode_step(params, cache, tokens, pos, cfg, **kw)
     return transformer.decode_step(params, cache, tokens, pos, cfg,
                                    windowed=windowed, **kw,
                                    **_marks(cfg, mark))
+
+
+def stacked(params) -> dict:
+    """A tree of bools like ``params``: True where a leaf has a leading
+    layer axis (every leaf of a layer group or of the encoder-decoder's
+    two stacks, but Zamba2's shared block, which is one block)."""
+    def mark(tree, inside):
+        if isinstance(tree, dict):
+            return {k: mark(v, inside and k != "shared")
+                    for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [mark(v, inside) for v in tree]
+        return inside
+    return {k: mark(v, k in ("groups", "enc_layers", "dec_layers"))
+            for k, v in params.items()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,

@@ -26,7 +26,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import torch_dtype
-from repro_torch.distributed import is_dtensor
+from repro_torch.distributed import fsdp, is_dtensor
 from repro_torch.distributed.cache_update import (deltas_like, write_slice,
                                                   write_whole)
 from repro_torch.models import layers as L
@@ -54,14 +54,22 @@ def init_params(gen: torch.Generator, cfg, device) -> dict:
     return params
 
 
+def _top_gathered(params, gather, mark=None):
+    return transformer.top_gathered(params, gather, mark,
+                                    stacks=("enc_layers", "dec_layers"))
+
+
 def encode(params, audio_embeds: torch.Tensor, cfg, *,
-           mode: str = "prefill", bspec=None) -> torch.Tensor:
+           mode: str = "prefill", bspec=None, gather=None) -> torch.Tensor:
     """audio_embeds: (B, S_enc, d), the stubbed frontend's output -> the
     encoder's states.  ``mode="train"`` takes the plain attention, never
-    the kernel."""
+    the kernel.  ``gather``: the sharded steps' per-layer gather, applied
+    to each layer's parameters as the loop reaches it."""
+    fetch = gather or fsdp.resolved
     x = L.constrain_batch(audio_embeds.to(torch_dtype(cfg)), bspec)
     positions = torch.arange(x.shape[1], device=x.device)
     for lp in unstack(params["enc_layers"]):
+        lp = fetch(lp)
         x, _ = L.attn_block_apply(lp["attn"], L.constrain_batch(x, bspec), cfg,
                                   causal=False,
                                   positions=positions, mode=mode)
@@ -71,7 +79,7 @@ def encode(params, audio_embeds: torch.Tensor, cfg, *,
 
 def _decoder_trunk(params, x, cfg, cache, *, mode, enc_out=None,
                    positions=None, pos=None, remat=False, bspec=None,
-                   return_deltas=False):
+                   return_deltas=False, gather=None):
     """Runs the decoder layers, writing ``cache`` in place.
 
     prefill: self-attention K/V of the T prompt positions at [0, T), and
@@ -80,10 +88,15 @@ def _decoder_trunk(params, x, cfg, cache, *, mode, enc_out=None,
     cross-attention reads ``ck``/``cv``; ``return_deltas`` leaves the
     cache unwritten and returns (x, the reference's deltas).
     train: no cache; ``remat`` checkpoints each layer's body (see
-    ``transformer.run_group_train``)."""
+    ``transformer.run_group_train``).  ``gather``: the sharded steps'
+    per-layer gather, applied to each layer's parameters as the loop
+    reaches it (in train, inside the checkpointed body)."""
     n = cfg.num_layers
     if mode == "train":
+        fetch = gather or fsdp.resolved
+
         def body(y, lp):
+            lp = fetch(lp)
             y = L.constrain_batch(y, bspec)
             y, _ = L.attn_block_apply(lp["attn"], y, cfg, mode="train",
                                       positions=positions)
@@ -94,10 +107,11 @@ def _decoder_trunk(params, x, cfg, cache, *, mode, enc_out=None,
             x = (checkpoint(body, x, lp, use_reentrant=False) if remat
                  else body(x, lp))
         return x
+    fetch = gather or transformer._as_is
     if mode == "prefill":
         T = x.shape[1]
         for i in range(n):
-            lp = layer_params(params["dec_layers"], i)
+            lp = fetch(layer_params(params["dec_layers"], i))
             x, kv = L.attn_block_apply(lp["attn"], L.constrain_batch(x, bspec),
                                        cfg, mode="prefill",
                                        positions=positions)
@@ -121,7 +135,7 @@ def _decoder_trunk(params, x, cfg, cache, *, mode, enc_out=None,
                           device=x.device)
     kvs = []
     for i in range(n):
-        lp = layer_params(params["dec_layers"], i)
+        lp = fetch(layer_params(params["dec_layers"], i))
         x, kv = L.attn_block_apply(lp["attn"], L.constrain_batch(x, bspec),
                                    cfg, mode="decode",
                                    cache={"k": cache["k"][i],
@@ -155,17 +169,30 @@ def init_cache(cfg, batch: int, capacity: int, device=None) -> dict:
             "cv": zeros(Ld, batch, Se, KV, hd)}
 
 
-def train_loss(params, batch, cfg, *, remat=True, bspec=None):
+def train_loss(params, batch, cfg, *, remat=True, bspec=None, gather=None,
+               mark=None):
     """batch: {'tokens': (B, T) int, 'audio_embeds': (B, S_enc, d)}.
     Next-token cross-entropy of the decoder; aux is zero (no MoE).
-    Returns (loss, {'ce', 'aux'})."""
+    Returns (loss, {'ce', 'aux'}).  ``gather`` as
+    ``transformer.train_loss``'s; ``mark``: entered around the encoder
+    ("group0") and the decoder ("group1"), forward and backward, as
+    ``transformer.forward_full`` does around its groups."""
     tokens = batch["tokens"]
-    enc_out = encode(params, batch["audio_embeds"], cfg, mode="train",
-                     bspec=bspec)
+    params = _top_gathered(params, gather, mark)
+    with L.marked(mark, "group0"):
+        enc_out = encode(params, batch["audio_embeds"], cfg, mode="train",
+                         bspec=bspec, gather=gather)
+    # the encoder's input needs no gradient: its backward phase runs on to
+    # the end of the backward
+    enc_out = L.backward_marked(mark, "backward_group0")[1](enc_out)
     x = L.constrain_batch(params["embed"][tokens].to(torch_dtype(cfg)), bspec)
     positions = torch.arange(tokens.shape[1], device=x.device)
-    h = _decoder_trunk(params, x, cfg, None, mode="train", enc_out=enc_out,
-                       positions=positions, remat=remat, bspec=bspec)
+    inward, outward = L.backward_marked(mark, "backward_group1")
+    with L.marked(mark, "group1"):
+        h = _decoder_trunk(params, inward(x), cfg, None, mode="train",
+                           enc_out=enc_out, positions=positions, remat=remat,
+                           bspec=bspec, gather=gather)
+    h = outward(h)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     ce = transformer.chunked_ce_loss(
         params, h, *transformer.next_token_targets(tokens), cfg)
@@ -173,34 +200,40 @@ def train_loss(params, batch, cfg, *, remat=True, bspec=None):
                                              device=x.device)}
 
 
-def prefill(params, batch, cfg, capacity: int, bspec=None, cache=None):
+def prefill(params, batch, cfg, capacity: int, bspec=None, cache=None,
+            gather=None):
     """batch: {'tokens': (B, T) int, 'audio_embeds': (B, S_enc, d)}.
     Returns (last_logits (B,V) f32, cache) with cache capacity
-    ``capacity``; ``cache``, ``bspec`` as ``transformer.prefill``'s."""
+    ``capacity``; ``cache``, ``bspec``, ``gather`` as
+    ``transformer.prefill``'s."""
     tokens = batch["tokens"]
-    enc_out = encode(params, batch["audio_embeds"], cfg, bspec=bspec)
+    params = _top_gathered(params, gather)
+    enc_out = encode(params, batch["audio_embeds"], cfg, bspec=bspec,
+                     gather=gather)
     x = L.constrain_batch(params["embed"][tokens].to(torch_dtype(cfg)), bspec)
     B, T = tokens.shape
     positions = torch.arange(T, device=x.device)
     if cache is None:
         cache = init_cache(cfg, B, capacity, device=x.device)
     h = _decoder_trunk(params, x, cfg, cache, mode="prefill", enc_out=enc_out,
-                       positions=positions, bspec=bspec)
+                       positions=positions, bspec=bspec, gather=gather)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return transformer.logits_last(params, h[:, -1], cfg), cache
 
 
 def decode_step(params, cache, tokens, pos, cfg, bspec=None,
-                return_deltas: bool = False):
+                return_deltas: bool = False, gather=None):
     """tokens: (B,) int new token ids; pos: 0-d int tensor slot index.
     Returns (logits (B,V) f32, cache), the cache updated in place; with
     ``return_deltas`` the cache is unwritten and the second result is the
     reference's deltas: {'k','v': (L, B, KV, 1, hd), 'ck','cv': the cache's
-    own}."""
+    own}; ``gather`` as ``transformer.prefill``'s."""
+    params = _top_gathered(params, gather)
     x = L.constrain_batch(params["embed"][tokens[:, None]].to(
         torch_dtype(cfg)), bspec)
     h = _decoder_trunk(params, x, cfg, cache, mode="decode", pos=pos,
-                       return_deltas=return_deltas, bspec=bspec)
+                       return_deltas=return_deltas, bspec=bspec,
+                       gather=gather)
     if return_deltas:
         h, cache = h
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)

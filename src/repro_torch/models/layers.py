@@ -92,6 +92,43 @@ def marked(mark, name: str):
     return contextlib.nullcontext() if mark is None else mark(name)
 
 
+class _OnBackward(torch.autograd.Function):
+    """Identity on ``x`` whose backward calls ``fn`` first."""
+
+    @staticmethod
+    def forward(ctx, x, fn):
+        ctx.fn = fn
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.fn()
+        return g, None
+
+
+def backward_marked(mark, name: str) -> tuple:
+    """(``inward``, ``outward``): identities for a stretch of the forward
+    (a layer group) whose backward is the phase ``name`` of ``mark``:
+    ``outward``, applied to the stretch's output, enters the phase when
+    the backward reaches it, and ``inward``, applied to its input, leaves
+    it when the backward is through.  So the dry-run takes the backward
+    apart as it takes the forward (``perf.roofline.PhaseMarks``).  Both
+    return their tensor as it is where ``mark`` is None."""
+    if mark is None:
+        return (lambda x: x), (lambda x: x)
+    open_ = []
+
+    def enter():
+        open_.append(mark(name))
+        open_[-1].__enter__()
+
+    def leave():
+        if open_:
+            open_.pop().__exit__(None, None, None)
+    return ((lambda x: _OnBackward.apply(x, leave)),
+            (lambda x: _OnBackward.apply(x, enter)))
+
+
 def constrain_batch(x: torch.Tensor, bspec) -> torch.Tensor:
     """Lay a DTensor activation out with its leading (batch) axis over the
     mesh axes ``bspec`` and every other axis whole, as the reference's
@@ -540,26 +577,40 @@ class _SafeView(torch.autograd.Function):
     as the forward's result was (a pending sum's gradient whole): DTensor
     may shard a gradient (a product's weight gradient, an attention
     output's) on a dim that the view back to the input's shape cannot
-    split evenly."""
+    split evenly.  ``keep_sums``: a pending sum on a mesh dim where the
+    result was whole stays pending (a view of it is exact), for a
+    weight's gradient, which the weight's per-layer gather then
+    reduce-scatters onto its shard once (``distributed.fsdp``)."""
 
     @staticmethod
-    def forward(ctx, w, shape):
+    def forward(ctx, w, shape, keep_sums=False):
         from torch.distributed.tensor import Replicate
         out = w.reshape(shape)
-        ctx.w_shape = w.shape
+        ctx.w_shape, ctx.keep_sums = w.shape, keep_sums
         ctx.layout = tuple(Replicate() if p.is_partial() else p
                            for p in out.placements)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        if tuple(g.placements) != ctx.layout:
-            g = g.redistribute(g.device_mesh, ctx.layout)
-        return g.reshape(ctx.w_shape), None
+        want = ctx.layout
+        if ctx.keep_sums:
+            want = tuple(p if p.is_partial() and w.is_replicate() else w
+                         for p, w in zip(g.placements, want))
+        if tuple(g.placements) != want:
+            g = g.redistribute(g.device_mesh, want)
+        return g.reshape(ctx.w_shape), None, None
 
 
 def safe_view(t: torch.Tensor, shape: tuple) -> torch.Tensor:
     return _SafeView.apply(t, shape) if is_dtensor(t) else t.reshape(shape)
+
+
+def weight_view(w: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """``safe_view`` of a weight: its gradient's pending sums stay pending
+    (``_SafeView``'s ``keep_sums``)."""
+    return _SafeView.apply(w, shape, True) if is_dtensor(w) \
+        else w.reshape(shape)
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -575,7 +626,7 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _proj_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum('btd,dhx->bthx') as one matrix product."""
     d, h, hx = w.shape
-    return unflatten_last(matmul(x, safe_view(w, (d, h * hx))), (h, hx))
+    return unflatten_last(matmul(x, weight_view(w, (d, h * hx))), (h, hx))
 
 
 def qkv_proj(p: dict, x: torch.Tensor, cfg):
@@ -592,7 +643,7 @@ def qkv_proj(p: dict, x: torch.Tensor, cfg):
 def _proj_out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum('bthx,hxd->btd') as one matrix product."""
     h, hx, d = w.shape
-    return matmul(o.flatten(-2), safe_view(w, (h * hx, d)))
+    return matmul(o.flatten(-2), weight_view(w, (h * hx, d)))
 
 
 def attn_block_apply(

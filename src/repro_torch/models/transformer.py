@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, MAMBA, SWA, torch_dtype
-from repro_torch.distributed import is_dtensor
+from repro_torch.distributed import fsdp, is_dtensor
 from repro_torch.distributed.cache_update import (deltas_like, write_slice,
                                                   write_whole)
 from repro_torch.models import layers as L
@@ -92,8 +92,10 @@ def init_params(gen: torch.Generator, cfg, device) -> dict:
 
 
 def layer_params(gp: dict, i: int) -> dict:
-    """Layer ``i`` of a stacked group: every leaf indexed on its layer axis."""
-    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+    """Layer ``i`` of a stacked group: every leaf indexed on its layer axis
+    (``fsdp.layer``: a DTensor sharded on that axis gives the one layer,
+    from the rank that holds it)."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else fsdp.layer(v, i)
             for k, v in gp.items()}
 
 
@@ -101,8 +103,10 @@ def unstack(gp: dict) -> list:
     """Every layer of a stacked group, each leaf split on its layer axis by
     ``torch.unbind``: the backward stacks the layers' gradients into the
     leaf once, where indexing each layer (``layer_params``) would add a
-    full-size gradient per layer."""
-    parts = {k: unstack(v) if isinstance(v, dict) else v.unbind(0)
+    full-size gradient per layer.  A DTensor sharded on its layer axis
+    gives a ``fsdp.LayerRef`` per layer, taken where the layer body
+    applies ``fsdp.resolved`` or the steps' gather."""
+    parts = {k: unstack(v) if isinstance(v, dict) else fsdp.layers(v)
              for k, v in gp.items()}
     n = len(next(iter(parts.values())))
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
@@ -173,16 +177,27 @@ def init_cache(cfg, batch: int, capacity: int, windowed: bool = False,
 # ---------------------------------------------------------------------------
 # Group execution
 # ---------------------------------------------------------------------------
-def run_group_train(gp, x, cfg, kind, *, positions, remat=False, bspec=None):
+def _as_is(tree):
+    return tree
+
+
+def run_group_train(gp, x, cfg, kind, *, positions, remat=False, bspec=None,
+                    gather=None):
     """Full-sequence forward of one group; returns (x, the group's MoE aux
     loss).  ``remat`` wraps each layer body (a Zamba2 super-block: its
     Mamba stack and the shared block) in a non-reentrant
     ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint(body)``:
     only the body's input is kept, its activations are recomputed in the
     backward.  ``bspec``: each body's input is constrained to the batch
-    axes first (``layers.constrain_batch``), as the reference's are."""
+    axes first (``layers.constrain_batch``), as the reference's are.
+    ``gather``: the sharded steps' per-layer gather, applied inside the
+    body to its layer's parameters (a Zamba2 super-block's: each Mamba
+    block's and, once, the shared block's), so that under ``remat`` the
+    backward gathers the layer again and one gathered layer is held at a
+    time."""
     _check_kind(kind)
     window = cfg.sliding_window
+    fetch = gather or fsdp.resolved
     if kind == "local_global":
         def body(y, lp):
             y, _, a1 = dense_layer_apply(lp["local"], y, cfg, window=window,
@@ -197,10 +212,11 @@ def run_group_train(gp, x, cfg, kind, *, positions, remat=False, bspec=None):
         layers = unstack(gp)
     elif kind == "hybrid_super":
         def body(y, mp_stack):
-            for mp in unstack(mp_stack):
-                y, _ = M.mamba_block_apply(mp, y, cfg, mode="train")
-            y, _, _ = dense_layer_apply(gp["shared"], y, cfg, window=window,
-                                        mode="train", positions=positions)
+            for mp in unstack(fsdp.resolved(mp_stack)):
+                y, _ = M.mamba_block_apply(fetch(mp), y, cfg, mode="train")
+            y, _, _ = dense_layer_apply(fetch(gp["shared"]), y, cfg,
+                                        window=window, mode="train",
+                                        positions=positions)
             return y, 0.0
         layers = unstack(gp["mamba"])
     else:
@@ -210,11 +226,11 @@ def run_group_train(gp, x, cfg, kind, *, positions, remat=False, bspec=None):
                                           mode="train", positions=positions)
             return y, aux
         layers = unstack(gp)
-    if bspec is not None:
-        inner = body
+    inner = body
+    take = _as_is if kind == "hybrid_super" else fetch
 
-        def body(y, lp):
-            return inner(L.constrain_batch(y, bspec), lp)
+    def body(y, lp):
+        return inner(L.constrain_batch(y, bspec), take(lp))
     aux_total = 0.0
     for lp in layers:
         if remat:
@@ -254,7 +270,7 @@ def _mamba_layer(lp, x, cfg, buf: dict, idx: tuple, mode: str,
 
 
 def run_group_prefill(gp, x, cfg, kind, cache, *, positions, cache_pos=0,
-                      seq_axis=None, bspec=None):
+                      seq_axis=None, bspec=None, gather=None):
     """Forward with the cache written in place at [cache_pos, cache_pos+T).
 
     At ``cache_pos == 0`` no token came before, so the Mamba blocks start
@@ -264,20 +280,25 @@ def run_group_prefill(gp, x, cfg, kind, cache, *, positions, cache_pos=0,
     ``seq_axis``: the attention groups' sequence-parallel prefill (not the
     hybrid's shared block, as in the reference).  ``bspec``: each layer's
     input constrained to the batch axes (``layers.constrain_batch``), the
-    one layout the reference's scan carries through its layers."""
+    one layout the reference's scan carries through its layers.
+    ``gather``: the sharded steps' per-layer gather, applied to each
+    layer's parameters as the loop reaches the layer (Zamba2's shared
+    block: once a super-block)."""
     fresh = cache_pos == 0
     carry = lambda y: L.constrain_batch(y, bspec)  # noqa: E731
+    fetch = gather or _as_is
+    take = lambda g, i: fetch(layer_params(g, i))  # noqa: E731
     _check_kind(kind)
     if kind == "local_global":
         for i in range(gp["local"]["attn"]["wq"].shape[0]):
-            x, kv_l, _ = dense_layer_apply(layer_params(gp["local"], i),
+            x, kv_l, _ = dense_layer_apply(take(gp["local"], i),
                                            carry(x), cfg,
                                            window=cfg.sliding_window,
                                            mode="prefill",
                                            positions=positions,
                                            seq_axis=seq_axis)
             _put(cache["local"], i, kv_l, cache_pos)
-            x, kv_g, _ = dense_layer_apply(layer_params(gp["global"], i), x,
+            x, kv_g, _ = dense_layer_apply(take(gp["global"], i), x,
                                            cfg, window=None, mode="prefill",
                                            positions=positions,
                                            seq_axis=seq_axis)
@@ -285,7 +306,7 @@ def run_group_prefill(gp, x, cfg, kind, cache, *, positions, cache_pos=0,
         return x, cache
     if kind == MAMBA:
         for i in range(gp["in_proj"].shape[0]):
-            x, _ = _mamba_layer(layer_params(gp, i), carry(x), cfg, cache,
+            x, _ = _mamba_layer(take(gp, i), carry(x), cfg, cache,
                                 (i,), "prefill", fresh)
         return x, cache
     if kind == "hybrid_super":
@@ -293,15 +314,15 @@ def run_group_prefill(gp, x, cfg, kind, cache, *, positions, cache_pos=0,
         for i in range(count):
             stack = layer_params(gp["mamba"], i)
             for j in range(inner):
-                x, _ = _mamba_layer(layer_params(stack, j), carry(x), cfg,
+                x, _ = _mamba_layer(take(stack, j), carry(x), cfg,
                                     cache["mamba"], (i, j), "prefill", fresh)
-            x, kv, _ = dense_layer_apply(gp["shared"], x, cfg,
+            x, kv, _ = dense_layer_apply(fetch(gp["shared"]), x, cfg,
                                          window=cfg.sliding_window,
                                          mode="prefill", positions=positions)
             _put(cache, i, kv, cache_pos)
         return x, cache
     for i in range(gp["attn"]["wq"].shape[0]):
-        x, kv, _ = dense_layer_apply(layer_params(gp, i), carry(x), cfg,
+        x, kv, _ = dense_layer_apply(take(gp, i), carry(x), cfg,
                                      window=_window(cfg, kind), mode="prefill",
                                      positions=positions, seq_axis=seq_axis)
         _put(cache, i, kv, cache_pos)
@@ -322,7 +343,7 @@ def _stacked(per_layer: list) -> dict:
 
 
 def run_group_decode(gp, x, cfg, kind, cache, *, pos, windowed=False,
-                     return_deltas=False, bspec=None):
+                     return_deltas=False, bspec=None, gather=None):
     """One-token step.  pos: 0-d int tensor — the slot the new token lands in.
     windowed=True: sliding-window layers (and Zamba2's shared block) use
     ring-buffer caches.  The cache is updated in place: K/V as in
@@ -334,22 +355,24 @@ def run_group_decode(gp, x, cfg, kind, cache, *, pos, windowed=False,
     stacked over the layers, (count, B, KV, 1, hd), and each state leaf's
     new state; on DTensors laid out as the cache leaves with the sequence
     axis whole (``cache_update.deltas_like``), ready for
-    ``cache_update.apply_cache_deltas``.  ``bspec`` as
+    ``cache_update.apply_cache_deltas``.  ``bspec`` and ``gather`` as
     ``run_group_prefill``'s."""
     _check_kind(kind)
     carry = lambda y: L.constrain_batch(y, bspec)  # noqa: E731
+    fetch = gather or _as_is
+    take = lambda g, i: fetch(layer_params(g, i))  # noqa: E731
     positions = pos.reshape(1)
     write = not return_deltas
     if kind == "local_global":
         dl, dg = [], []
         for i in range(gp["local"]["attn"]["wq"].shape[0]):
             x, kv_l, _ = dense_layer_apply(
-                layer_params(gp["local"], i), carry(x), cfg,
+                take(gp["local"], i), carry(x), cfg,
                 window=cfg.sliding_window, mode="decode",
                 kv=_layer_cache(cache["local"], i), cache_pos=pos,
                 positions=positions, ring=windowed, write=write)
             x, kv_g, _ = dense_layer_apply(
-                layer_params(gp["global"], i), x, cfg, window=None,
+                take(gp["global"], i), x, cfg, window=None,
                 mode="decode", kv=_layer_cache(cache["global"], i),
                 cache_pos=pos, positions=positions, write=write)
             dl.append(kv_l)
@@ -360,7 +383,7 @@ def run_group_decode(gp, x, cfg, kind, cache, *, pos, windowed=False,
     elif kind == MAMBA:
         states = []
         for i in range(gp["in_proj"].shape[0]):
-            x, st = _mamba_layer(layer_params(gp, i), carry(x), cfg, cache,
+            x, st = _mamba_layer(take(gp, i), carry(x), cfg, cache,
                                  (i,), "decode", write=write)
             states.append(st)
 
@@ -373,11 +396,11 @@ def run_group_decode(gp, x, cfg, kind, cache, *, pos, windowed=False,
             stack = layer_params(gp["mamba"], i)
             states.append([])
             for j in range(inner):
-                x, st = _mamba_layer(layer_params(stack, j), carry(x), cfg,
+                x, st = _mamba_layer(take(stack, j), carry(x), cfg,
                                      cache["mamba"], (i, j), "decode",
                                      write=write)
                 states[-1].append(st)
-            x, kv, _ = dense_layer_apply(gp["shared"], x, cfg,
+            x, kv, _ = dense_layer_apply(fetch(gp["shared"]), x, cfg,
                                          window=cfg.sliding_window,
                                          mode="decode",
                                          kv=_layer_cache(cache, i),
@@ -391,7 +414,7 @@ def run_group_decode(gp, x, cfg, kind, cache, *, pos, windowed=False,
         ring = windowed and kind == SWA
         kvs = []
         for i in range(gp["attn"]["wq"].shape[0]):
-            x, kv, _ = dense_layer_apply(layer_params(gp, i), carry(x), cfg,
+            x, kv, _ = dense_layer_apply(take(gp, i), carry(x), cfg,
                                          window=_window(cfg, kind),
                                          mode="decode",
                                          kv=_layer_cache(cache, i),
@@ -494,36 +517,57 @@ def chunked_ce_loss(params, h, labels, mask, cfg, chunk: int = 512):
 # ---------------------------------------------------------------------------
 # Public entry points
 # ---------------------------------------------------------------------------
+def top_gathered(params, gather, mark=None, stacks=("groups",)):
+    """``params`` with the leaves outside the layer stacks ``stacks``
+    (embedding, norms, head, vision projection) gathered once (``gather``;
+    None: as they are); the stacks as they are, for each layer's own
+    gather.  ``mark``: entered around it, "gather"."""
+    if gather is None:
+        return params
+    with L.marked(mark, "gather"):
+        top = gather({k: v for k, v in params.items() if k not in stacks})
+    return {**top, **{k: params[k] for k in stacks}}
+
+
 def forward_full(params, x, cfg, *, positions, remat=False, bspec=None,
-                 mark=None):
+                 gather=None, mark=None):
     """Train-mode trunk: groups -> final norm.  Returns (h, the MoE aux
-    loss summed over layers, a float32 scalar).  ``mark``: entered around
-    each group (``layers.marked``)."""
+    loss summed over layers, a float32 scalar).  ``gather``: each layer's
+    (``run_group_train``); ``mark``: entered around each group
+    (``layers.marked``), and its backward (``layers.backward_marked``)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (gp, (kind, _)) in enumerate(zip(params["groups"],
                                             cfg.layer_groups)):
+        inward, outward = L.backward_marked(mark, f"backward_group{i}")
         with L.marked(mark, f"group{i}"):
-            x, aux = run_group_train(gp, x, cfg, kind, positions=positions,
-                                     remat=remat, bspec=bspec)
+            x, aux = run_group_train(gp, inward(x), cfg, kind,
+                                     positions=positions, remat=remat,
+                                     bspec=bspec, gather=gather)
+        x = outward(x)
         aux_total = aux_total + aux
     return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux_total
 
 
-def train_loss(params, batch, cfg, *, remat=True, bspec=None, mark=None):
+def train_loss(params, batch, cfg, *, remat=True, bspec=None, gather=None,
+               mark=None):
     """batch: {'tokens': (B, T) int, optional 'patch_embeds': (B, P, d)}.
     Next-token cross-entropy over the text positions (the last one
     masked), plus ``router_aux_loss_coef`` x the MoE aux loss.  Returns
     (loss, {'ce', 'aux'}).  ``bspec``: the mesh axes the activations'
-    batch is constrained to (``layers.constrain_batch``); ``mark`` as
-    ``forward_full``'s."""
+    batch is constrained to (``layers.constrain_batch``); ``gather``: the
+    sharded steps' per-layer gather, applied once to the leaves outside
+    the layer groups (a tied embedding, the head too, gathered once and
+    its gradient reduced once) and to each layer in its body; ``mark`` as
+    ``forward_full``'s (and around the first gather, "gather")."""
     tokens = batch["tokens"]
+    params = top_gathered(params, gather, mark)
     x = L.constrain_batch(embed_tokens(params, tokens, cfg,
                                        patch_embeds=batch.get("patch_embeds")),
                           bspec)
     T = x.shape[1]
     positions = torch.arange(T, device=x.device)
     h, aux = forward_full(params, x, cfg, positions=positions, remat=remat,
-                          bspec=bspec, mark=mark)
+                          bspec=bspec, gather=gather, mark=mark)
     h_text = L.constrain_batch(h[:, T - tokens.shape[1]:], bspec)
     ce = chunked_ce_loss(params, h_text, *next_token_targets(tokens), cfg)
     loss = ce + cfg.router_aux_loss_coef * aux
@@ -531,13 +575,14 @@ def train_loss(params, batch, cfg, *, remat=True, bspec=None, mark=None):
 
 
 def prefill(params, batch, cfg, capacity: int, bspec=None, seq_axis=None,
-            cache=None, mark=None):
+            cache=None, gather=None, mark=None):
     """Returns (last_logits (B,V) f32, cache) with cache capacity ``capacity``.
     batch: {'tokens': (B, T) int, optional 'patch_embeds': (B, P, d)}; the
     cache then holds P + T positions.  ``cache``: a zero cache to fill in
     place (under a mesh, DTensors laid out by the steps' cache specs);
     None allocates a plain one.  ``bspec`` and ``seq_axis`` as the
-    reference's; ``mark`` as ``forward_full``'s."""
+    reference's; ``gather`` and ``mark`` as ``train_loss``'s."""
+    params = top_gathered(params, gather, mark)
     x = L.constrain_batch(embed_tokens(params, batch["tokens"], cfg,
                                        patch_embeds=batch.get("patch_embeds")),
                           bspec)
@@ -550,19 +595,21 @@ def prefill(params, batch, cfg, capacity: int, bspec=None, seq_axis=None,
         with L.marked(mark, f"group{i}"):
             x, _ = run_group_prefill(gp, x, cfg, kind, c,
                                      positions=positions, seq_axis=seq_axis,
-                                     bspec=bspec)
+                                     bspec=bspec, gather=gather)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return logits_last(params, x[:, -1], cfg), cache
 
 
 def decode_step(params, cache, tokens, pos, cfg, windowed: bool = False,
-                bspec=None, return_deltas: bool = False, mark=None):
+                bspec=None, return_deltas: bool = False, gather=None,
+                mark=None):
     """tokens: (B,) int new token ids; pos: 0-d int tensor slot index.
 
     Returns (logits (B,V) f32, cache).  The cache is updated in place and
     the same list is returned; with ``return_deltas`` it is left
     unwritten and the second result is each group's deltas
-    (``run_group_decode``).  ``mark`` as ``forward_full``'s."""
+    (``run_group_decode``).  ``gather`` and ``mark`` as ``train_loss``'s."""
+    params = top_gathered(params, gather, mark)
     x = L.constrain_batch(embed_tokens(params, tokens[:, None], cfg), bspec)
     out = []
     for i, (gp, c, (kind, _)) in enumerate(zip(params["groups"], cache,
@@ -571,7 +618,7 @@ def decode_step(params, cache, tokens, pos, cfg, windowed: bool = False,
             x, nc = run_group_decode(gp, x, cfg, kind, c, pos=pos,
                                      windowed=windowed,
                                      return_deltas=return_deltas,
-                                     bspec=bspec)
+                                     bspec=bspec, gather=gather)
         out.append(nc)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return logits_last(params, x[:, 0], cfg), (out if return_deltas

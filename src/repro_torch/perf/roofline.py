@@ -148,10 +148,10 @@ class Roofline:
 class PhaseMarks:
     """A step's phase marker (``mark=`` of ``launch/steps.py``'s steps):
     ``marks(name)`` is entered around each phase of the step (a layer
-    group; a train step's gathering, forward, backward, accumulation,
-    reduction and update; the decode append), and tells ``observer``,
-    while ``analyze`` sets one, where the phase starts (``name``) and
-    ends (``"/" + name``)."""
+    group; the gather of the leaves outside the groups; a train step's
+    forward, backward, accumulation and update; the decode append), and
+    tells ``observer``, while ``analyze`` sets one, where the phase starts
+    (``name``) and ends (``"/" + name``)."""
 
     def __init__(self):
         self.observer = None
@@ -167,13 +167,24 @@ class PhaseMarks:
                 self.observer("/" + name)
 
 
-def _make_tracker(device):
+def _make_tracker(device, args=()):
     """A ``MemTracker`` that also keeps the peak on ``device`` of each
-    phase (``next_phase``), and leaves DTensor's propagation through an
-    op's decomposition untracked."""
+    phase (``next_phase``), leaves DTensor's propagation through an op's
+    decomposition untracked, and never counts the storage of a tensor in
+    ``args`` (the step's arguments, which a record counts as its argument
+    bytes) when the step views, reads into or writes it."""
     from torch.distributed._tools.mem_tracker import MemTracker
+    from torch.utils.weak import WeakIdKeyDictionary
 
+    from repro_torch.distributed.sharding import tree_map_with_path
     from repro_torch.perf.op_analysis import propagating
+    given = WeakIdKeyDictionary()
+
+    def note(_, t):
+        if isinstance(t, torch.Tensor):
+            loc = t.to_local() if hasattr(t, "to_local") else t
+            given[loc.untyped_storage()] = True
+    tree_map_with_path(note, list(args))
 
     class Tracker(MemTracker):
         def __init__(self):
@@ -185,6 +196,10 @@ def _make_tracker(device):
             if propagating():
                 return func(*args, **(kwargs or {}))
             return super().__torch_dispatch__(func, types, args, kwargs)
+
+        def _track(self, reftype, t) -> None:
+            if t.untyped_storage() not in given:
+                super()._track(reftype, t)
 
         def _now(self) -> int:
             return self._curr_mem_snap.get(device, {}).get("Total", 0)
@@ -199,20 +214,23 @@ def _make_tracker(device):
     return Tracker()
 
 
-def _tracked(run, device, marks: Optional[PhaseMarks] = None) -> tuple:
+def _tracked(run, device, marks: Optional[PhaseMarks] = None,
+             args=()) -> tuple:
     """(``run()``'s value, the peak bytes allocated on ``device`` while it
     ran and that peak within each phase, or None, and why not).
     ``MemTracker`` (``torch.distributed._tools``) over the run on the
     meta tensors themselves: every tensor the step makes, its results
-    included, at its local shape; not the host tensors DTensor makes to
-    lay its meshes out (once a process), nor those of its propagation
+    included, at its local shape; not the storage of its arguments
+    ``args`` (a parameter the step detaches, a cache or an optimizer
+    state it writes in place), nor the host tensors DTensor makes to lay
+    its meshes out (once a process), nor those of its propagation
     through an op's decomposition (``op_analysis``).  A phase starts and
     ends where one of ``marks`` does (the step built with them).  Where
     the tracker fails, the run is made again without it."""
     from repro_torch.perf.op_analysis import dtensor_propagation_marked
     with dtensor_propagation_marked():
         try:
-            tracker = _make_tracker(device)
+            tracker = _make_tracker(device, args)
             if marks is not None:
                 marks.observer = tracker.next_phase
             try:
@@ -266,7 +284,7 @@ def analyze(fn, args, cfg, shape, chips: int,
         return results[-1]
     h, temp, phases, why = _tracked(
         lambda: analyze_ops(step, *args, reuse_meta=False),
-        torch.device("meta"), marks)
+        torch.device("meta"), marks, args)
     mem = memory_analysis(args, results[-1], temp, why)
     per_chip = (mem["temp_size"] or 0.0) + mem["argument_size"] \
         + mem["output_size"] - mem["alias_size"]

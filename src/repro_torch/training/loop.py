@@ -20,18 +20,22 @@ from repro_torch.training.data import DataConfig, TokenStream
 
 
 def loss_and_grads(params, batch: dict, cfg: ModelConfig, *,
-                   remat: bool = True, bspec=None, mark=None):
+                   remat: bool = True, bspec=None, gather=None, mark=None):
     """``jax.value_and_grad`` of ``api.train_loss`` with its metrics:
     returns (loss, {'ce', 'aux'}, grads), the gradients in the parameters'
     tree (zero for a leaf the loss does not reach, such as a cross-
-    attention block's unused ``norm``).  ``bspec``: ``train_loss``'s batch
+    attention block's unused ``norm``).  The autograd leaves are
+    ``params`` as given: on a mesh, their FSDP shards, which ``gather``
+    (``train_loss``'s per-layer gather) makes whole layer by layer, its
+    backward taking each gradient back onto the shard, so the gradients
+    come out laid out as the params.  ``bspec``: ``train_loss``'s batch
     constraint (a mesh's DTensors); ``mark``: entered around the forward,
     the backward and each layer group (``layers.marked``)."""
     p = adamw.tree_map(lambda t: t.detach().requires_grad_(), params)
     leaves = adamw.tree_leaves(p)
     with marked(mark, "forward"):
         loss, metrics = api.train_loss(p, batch, cfg, remat=remat,
-                                       bspec=bspec, mark=mark)
+                                       bspec=bspec, gather=gather, mark=mark)
     with marked(mark, "backward"):
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)

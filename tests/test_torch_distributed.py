@@ -125,6 +125,38 @@ np.savez(f"{out}/ref_zamba2.npz", tokens=np.asarray(batch["tokens"]),
 print("REF_OK")
 """
 
+# Two steps on the data-only (8, 1) mesh, 2 microbatches of 8 rows (one a
+# rank), TINY SmolLM as REF_TRAIN's; the same steps on (4, 2) give the
+# reference's own partitioning noise
+REF_TRAIN_DP = REF_PRELUDE + r"""
+cfg = get_config("smollm_360m", tiny=True).replace(
+    num_heads=4, num_kv_heads=2, head_dim=32, d_model=128, d_ff=256,
+    vocab_size=512, dtype="float32")
+shape = InputShape("t", 64, 16, "train")
+rng = jax.random.PRNGKey(0)
+params = api.init_params(rng, cfg)
+batch = api.make_batch(rng, cfg, shape)
+checkpoint.save(f"{out}/ref_dp0.npz", 0, jax.device_get(params))
+for data, model in ((8, 1), (4, 2)):
+    m = jax.make_mesh((data, model), ("data", "model"),
+                      axis_types=(AxisType.Auto,) * 2)
+    with m:
+        fn, _, in_sh, _ = steps_lib.make_train_step(cfg, MeshInfo(m), shape,
+                                                    num_microbatches=2)
+        p = jax.device_put(params, in_sh[0])
+        o = jax.device_put(adamw.init(params), in_sh[1])
+        b = jax.device_put(batch, in_sh[2])
+        p, o, m1 = fn(p, o, b)
+        p, o, m2 = fn(p, o, b)
+    checkpoint.save(f"{out}/ref_dp2_{data}x{model}.npz", 2, jax.device_get(p),
+                    jax.device_get({"mu": o.mu, "nu": o.nu}))
+    if data == 8:
+        losses = [float(m1["loss"]), float(m2["loss"])]
+np.savez(f"{out}/ref_dp.npz", tokens=np.asarray(batch["tokens"]),
+         losses=np.array(losses))
+print("REF_OK")
+"""
+
 REF_DECODE = REF_PRELUDE + r"""
 cfg = get_config("mixtral_8x22b", tiny=True)
 B, S = 8, 128
@@ -202,10 +234,11 @@ def _full(tree):
 
 
 def _train_two_steps(cfg, batch_size, rank, data, model, ref0, ref_tokens,
-                     port_out):
+                     port_out, moments=False):
     """Two sharded train steps (2 microbatches) from the reference's
-    parameters and tokens; rank 0 saves the new parameters and the losses
-    to ``port_out`` + ``2.npz`` / ``.npz``."""
+    parameters and tokens; rank 0 saves the new parameters and AdamW's
+    first moment (``moments``: both, as ``{"mu", "nu"}``), and the
+    losses, to ``port_out`` + ``2.npz`` / ``.npz``."""
     import torch
     from repro_torch.configs.base import InputShape
     from repro_torch.distributed import sharding as shd
@@ -225,9 +258,10 @@ def _train_two_steps(cfg, batch_size, rank, data, model, ref0, ref_tokens,
     p, o, m1 = fn(p, o, b)
     p, o, m2 = fn(p, o, b)
     losses = [m["loss"].full_tensor().item() for m in (m1, m2)]
-    full, mu = _full(p), _full(o.mu)
+    full = _full(p)
+    opt = _full({"mu": o.mu, "nu": o.nu} if moments else o.mu)
     if rank == 0:
-        checkpoint.save(f"{port_out}2.npz", 2, full, mu)
+        checkpoint.save(f"{port_out}2.npz", 2, full, opt)
         np.savez(f"{port_out}.npz", losses=np.array(losses))
 
 
@@ -238,6 +272,15 @@ def _case_train(rank, data, model, out):
         vocab_size=512, dtype="float32")
     _train_two_steps(cfg, 8, rank, data, model, f"{out}/ref_train0.npz",
                      f"{out}/ref_train.npz", f"{out}/port_train")
+
+
+def _case_train_dp(rank, data, model, out):
+    from repro_torch.configs.base import get_config
+    cfg = get_config("smollm_360m", tiny=True).replace(
+        num_heads=4, num_kv_heads=2, head_dim=32, d_model=128, d_ff=256,
+        vocab_size=512, dtype="float32")
+    _train_two_steps(cfg, 16, rank, data, model, f"{out}/ref_dp0.npz",
+                     f"{out}/ref_dp.npz", f"{out}/port_dp", moments=True)
 
 
 def _case_train_zamba2(rank, data, model, out):
@@ -364,7 +407,125 @@ def _case_kernel_guard(rank, data, model, out):
                  raised=np.asarray(raised), err=np.asarray(err))
 
 
+def _collective_operands(watched: dict):
+    """A dispatch mode that records, for every functional collective, each
+    operand that lies on the storage of a tensor in ``watched``
+    ({storage: name}): (name, the operand's element count)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Operands(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(t is DTensor for t in types):
+                return NotImplemented
+            if func.namespace == "_c10d_functional":
+                for a in args:
+                    if isinstance(a, torch.Tensor) \
+                            and a.untyped_storage() in watched:
+                        self.seen.append((watched[a.untyped_storage()],
+                                          a.numel()))
+            return func(*args, **(kwargs or {}))
+    return Operands()
+
+
+def _case_layer_axis(rank, data, model, out):
+    """TINY Mamba2 at 8 layers, float32: the FSDP rule shards the layer
+    axis of its (8, 8) leaves (``A_log``, ``D``, ``dt_bias``).  One train
+    step of 2 microbatches, then a prefill and a decode step with the
+    params laid out as in training, every collective's operands that lie
+    on those leaves recorded; then a DTensor ``leaf[3]``, which gathers
+    the whole leaf, recorded the same way.  Rank 0 runs the unsharded
+    step and entry points on the same inputs."""
+    import torch
+    from torch.utils.weak import WeakIdKeyDictionary
+    from repro_torch.configs.base import InputShape, get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.training import adamw
+    from repro_torch.training.loop import loss_and_grads
+    minfo = meshlib.make_host_mesh(data, model)
+    cfg = get_config("mamba2_1p3b", tiny=True).replace(num_layers=8,
+                                                       dtype="float32")
+    B, T = 8, 64
+    shape = InputShape("t", T, B, "train")
+    params = api.init_params(cfg, seed=0, device="cpu")
+    tokens = api.make_batch(cfg, shape, seed=1, device="cpu")["tokens"]
+    fn, _, in_sh, _ = steps.make_train_step(cfg, minfo, shape,
+                                            num_microbatches=2)
+    p = shd.distribute_tree(adamw.tree_map(torch.clone, params), in_sh[0],
+                            minfo)
+    o = shd.distribute_tree(adamw.init(params), in_sh[1], minfo)
+    b = shd.distribute_tree({"tokens": tokens}, in_sh[2], minfo)
+    watched, layer_numel = WeakIdKeyDictionary(), {}
+    for name, leaf in p["groups"][0].items():
+        if leaf.placements[0].is_shard(0):
+            watched[leaf.to_local().untyped_storage()] = name
+            layer_numel[name] = leaf.to_local()[0].numel()
+    rec = {}
+    with _collective_operands(watched) as mode:
+        p, o, m = fn(p, o, b)
+    rec["train"] = mode.seen
+    loss, mu = m["loss"].full_tensor().item(), _full(o.mu)
+
+    pshape = InputShape("p", T, B, "prefill")
+    pfn, _, p_in, _ = steps.make_prefill_step(cfg, minfo, pshape,
+                                              param_mode="train")
+    dfn, _, d_in, _ = steps.make_decode_step(
+        cfg, minfo, InputShape("d", T, B, "decode"), param_mode="train")
+    batch = {"tokens": tokens}
+    P = shd.distribute_tree(params, p_in[0], minfo)
+    watched.clear()
+    for name, leaf in P["groups"][0].items():
+        if leaf.placements[0].is_shard(0):
+            watched[leaf.to_local().untyped_storage()] = name
+    tok = torch.arange(B, dtype=torch.int32)
+    pos = torch.tensor(T, dtype=torch.int32)
+    with _collective_operands(watched) as mode:
+        logits, cache = pfn(P, shd.distribute_tree(batch, p_in[1], minfo))
+        step_logits, _ = dfn(P, cache, shd.distribute(tok, d_in[2], minfo),
+                             shd.distribute(pos, d_in[3], minfo))
+    rec["serve"] = mode.seen
+    got = (logits.full_tensor(), step_logits.full_tensor())
+    with _collective_operands(watched) as mode:
+        P["groups"][0]["A_log"][3]
+    rec["control"] = mode.seen
+
+    if rank == 0:
+        grads, want_loss = None, 0.0
+        for mb in tokens.chunk(2):
+            mb_loss, _, g = loss_and_grads(params, {"tokens": mb}, cfg)
+            g = adamw.tree_map(lambda t: t / 2, g)
+            grads = g if grads is None else adamw.tree_map(torch.add, grads,
+                                                           g)
+            want_loss += mb_loss.item() / 2
+        _, want_opt, _ = adamw.update(grads, adamw.init(params), params)
+        want_logits, want_cache = api.prefill(params, batch, cfg, capacity=T)
+        want_step, _ = api.decode_step(params, want_cache, tok, pos, cfg)
+        flat = {"loss": np.array([loss, want_loss]),
+                "logits": got[0].numpy(), "want_logits": want_logits.numpy(),
+                "step": got[1].numpy(), "want_step": want_step.numpy(),
+                "layer_numel": np.array([layer_numel[k]
+                                         for k in sorted(layer_numel)]),
+                "layer_leaves": np.array(sorted(layer_numel))}
+        for k, seen in rec.items():
+            flat[f"{k}/names"] = np.array([n for n, _ in seen], dtype=str)
+            flat[f"{k}/numel"] = np.array([c for _, c in seen], dtype=np.int64)
+        for path_mu, (got_mu, want_mu) in enumerate(zip(
+                adamw.tree_leaves(mu), adamw.tree_leaves(want_opt.mu))):
+            flat[f"mu/{path_mu}"] = np.stack([got_mu.numpy(),
+                                              want_mu.numpy()])
+        np.savez(f"{out}/port_layer_axis.npz", **flat)
+
+
 CASES = {"train": _case_train, "train_zamba2": _case_train_zamba2,
+         "train_dp": _case_train_dp, "layer_axis": _case_layer_axis,
          "decode": _case_decode,
          "prefill": _case_prefill, "guard": _case_kernel_guard}
 
@@ -404,6 +565,81 @@ def test_sharded_train_step_matches_reference():
             # element at its leaf's gradient noise by more than 1e-2
             own = np.abs((p8[k] - x0) - dj).max()
             assert err.max() <= max(1e-2 * largest, own), (k, err.max(), own)
+
+
+def test_sharded_train_step_on_a_data_mesh_matches_reference():
+    """(8, 1) mesh, 8 ranks: TINY SmolLM, batch 16 in 2 microbatches (each
+    row on its own rank, every leaf FSDP-sharded over 'data' and gathered
+    layer by layer), two steps: the losses, the parameters' change (the
+    rule of ``test_sharded_train_step_matches_reference``, the
+    reference's own noise here its steps on (4, 2)) and AdamW's two
+    moments after the steps within 1e-4 of each leaf's largest (the rule
+    of ``test_sharded_zamba2_train_step_matches_reference``)."""
+    with tempfile.TemporaryDirectory() as out:
+        _run_reference(REF_TRAIN_DP, out)
+        _run_port("train_dp", 8, 1, out)
+        want = np.load(f"{out}/ref_dp.npz")["losses"]
+        got = np.load(f"{out}/port_dp.npz")["losses"]
+        np.testing.assert_allclose(got, want, rtol=1e-4)
+        p0 = _leaves(f"{out}/ref_dp0.npz")
+        pr = _leaves(f"{out}/ref_dp2_8x1.npz")
+        pp = _leaves(f"{out}/port_dp2.npz")
+        p42 = _leaves(f"{out}/ref_dp2_4x2.npz")
+        assert pr.keys() == pp.keys() == p0.keys() == p42.keys()
+        for k, x0 in p0.items():
+            dj, dt = pr[k] - x0, pp[k] - x0
+            err = np.abs(dt - dj)
+            largest = np.abs(dj).max()
+            bound = np.maximum(1e-4 * largest, 2 * np.spacing(np.abs(pr[k])))
+            assert np.quantile(err / bound, 0.999) <= 1.0, k
+            own = np.abs((p42[k] - x0) - dj).max()
+            assert err.max() <= max(1e-2 * largest, own), (k, err.max(), own)
+        with np.load(f"{out}/ref_dp2_8x1.npz") as z, \
+                np.load(f"{out}/port_dp2.npz") as g:
+            opt = [k for k in z.files if k.startswith("opt/")]
+            assert sorted(opt) == sorted(k for k in g.files
+                                         if k.startswith("opt/"))
+            assert {k.split("/")[1] for k in opt} == {"mu", "nu"}
+            for k in opt:
+                np.testing.assert_allclose(
+                    g[k], z[k], rtol=0, atol=1e-4 * np.abs(z[k]).max(),
+                    err_msg=k)
+
+
+def test_layer_axis_shards_are_gathered_one_layer_at_a_time():
+    """(4, 2) mesh, 8 ranks: TINY Mamba2 at 8 layers, whose (8, 8) leaves
+    the FSDP rule shards on their layer axis.  Over a train step (2
+    microbatches), a prefill and a decode step with the params laid out
+    as in training, no collective takes such a leaf's local shard whole:
+    each collective that touches one holds one layer of it, and some do
+    (the layers are gathered from the rank that holds them); a DTensor
+    ``leaf[3]``, which does gather the whole leaf, is caught by the same
+    record.  The results against the unsharded step and entry points in
+    float32: the loss, the logits within 1e-5 (the sharded products sum
+    in another order), AdamW's first moment within 1e-4 of each leaf's
+    largest."""
+    with tempfile.TemporaryDirectory() as out:
+        _run_port("layer_axis", 4, 2, out)
+        got = np.load(f"{out}/port_layer_axis.npz")
+        names = [str(n) for n in got["layer_leaves"]]
+        assert set(names) == {"A_log", "D", "dt_bias"}
+        one = dict(zip(names, got["layer_numel"]))
+        for phase in ("train", "serve"):
+            seen = list(zip(got[f"{phase}/names"], got[f"{phase}/numel"]))
+            assert seen, phase
+            assert all(n <= one[str(name)] for name, n in seen), (phase, seen)
+        control = list(zip(got["control/names"], got["control/numel"]))
+        assert any(n > one[str(name)] for name, n in control), control
+        loss, want_loss = got["loss"]
+        np.testing.assert_allclose(loss, want_loss, rtol=1e-5)
+        for k in ("logits", "step"):
+            np.testing.assert_allclose(got[k], got[f"want_{k}"], atol=1e-5,
+                                       rtol=1e-5)
+        for k in (k for k in got.files if k.startswith("mu/")):
+            g, w = got[k]
+            np.testing.assert_allclose(g, w, rtol=0,
+                                       atol=1e-4 * np.abs(w).max(),
+                                       err_msg=k)
 
 
 @pytest.fixture(scope="module")

@@ -247,6 +247,117 @@ def test_fast_record_equals_the_whole_step_counted(fast_and_full, name):
         assert full["memory_analysis"]["temp_size"] is not None, kind
 
 
+# The train step's temp bytes against the reference's compiled step: TINY
+# Qwen2-72B and Mixtral-8x22B widened to d_model 512, d_ff 2048, at 4 and 8
+# layers, 64 positions x batch 8 on a (4, 2) mesh.  A step that gathers
+# every FSDP shard at once holds a gathered copy, its gradient and the
+# accumulator of every layer; one that gathers layer by layer holds one
+# gathered layer and each layer's gradient on its shard, as the reference's
+# scan does.
+TEMP_ARCHS = ("qwen2_72b", "mixtral_8x22b")
+TEMP_LAYERS = (4, 8)
+TEMP_WIDE = {"d_model": 512, "d_ff": 2048}
+
+REF_TEMP_PROG = r"""
+import os, sys, json
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import jax
+from jax.sharding import AxisType
+from repro.configs.base import get_config, InputShape
+from repro.distributed.sharding import MeshInfo
+from repro.launch import steps as steps_lib
+wide, out = json.loads(sys.argv[3]), {}
+mesh = jax.make_mesh((4, 2), ("data", "model"),
+                     axis_types=(AxisType.Auto, AxisType.Auto))
+shape = InputShape("train", 64, 8, "train")
+for arch in sys.argv[2].split(","):
+    for n in (4, 8):
+        cfg = get_config(arch, tiny=True).replace(num_layers=n, **wide)
+        with mesh:
+            fn, specs, _, _ = steps_lib.make_train_step(cfg, MeshInfo(mesh),
+                                                        shape)
+            mem = fn.lower(*specs).compile().memory_analysis()
+        out[f"{arch}/{n}"] = {"argument_size": mem.argument_size_in_bytes,
+                              "temp_size": mem.temp_size_in_bytes}
+json.dump(out, open(sys.argv[1], "w"))
+print("REF_OK")
+"""
+
+
+def _temp_case(arch: str, path: str) -> None:
+    """``arch``'s widened train step at each of ``TEMP_LAYERS``, rank 0 of
+    a (4, 2) fake group: argument and temp bytes."""
+    import torch
+    from repro_torch.configs.base import InputShape, get_config
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.perf import roofline
+    torch.set_num_threads(1)
+    dryrun.fake_group(8)
+    minfo = make_host_mesh(4, 2)
+    shape = InputShape("train", 64, 8, "train")
+    out = {}
+    for n in TEMP_LAYERS:
+        cfg = get_config(arch, tiny=True).replace(num_layers=n, **TEMP_WIDE)
+        fn, specs, in_sh, _ = steps.make_train_step(cfg, minfo, shape)
+        rl = roofline.analyze(fn, dryrun.laid_out(specs, in_sh, minfo), cfg,
+                              shape, 8)
+        out[str(n)] = {k: rl.memory[k] for k in ("argument_size",
+                                                  "temp_size")}
+    Path(path).write_text(json.dumps(out))
+
+
+@pytest.fixture(scope="module")
+def train_temps(tmp_path_factory):
+    """The reference's and the port's records, all four runs at once."""
+    pytest.importorskip("jax")
+    tmp = tmp_path_factory.mktemp("dryrun_temp")
+    procs = {"ref": subprocess.Popen(
+        [sys.executable, "-c", REF_TEMP_PROG, str(tmp / "ref.json"),
+         ",".join(TEMP_ARCHS), json.dumps(TEMP_WIDE)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=_env())}
+    for arch in TEMP_ARCHS:
+        procs[arch] = subprocess.Popen(
+            [sys.executable, __file__, "temp", arch,
+             str(tmp / f"{arch}.json")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=_env())
+    done = {}
+    for name, p in procs.items():
+        try:
+            out, err = p.communicate(timeout=TIMEOUT)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        assert p.returncode == 0, (name, out[-2000:] + err[-4000:])
+        done[name] = json.loads((tmp / f"{name}.json").read_text())
+    return done
+
+
+@pytest.mark.parametrize("arch", TEMP_ARCHS)
+def test_train_temp_grows_as_the_reference_layer_by_layer(train_temps, arch):
+    """The sharded train step's temp bytes: at 8 layers within 1.5x the
+    reference's compiled step, and its growth from 4 to 8 layers within
+    1.5x the reference's.  A step that gathers every FSDP shard at once
+    grows by several gathered copies of each layer (3.9x / 6.6x the
+    reference's for Qwen2, 5.4x / 7.1x for Mixtral); argument bytes equal
+    the reference's."""
+    ref, got = train_temps["ref"], train_temps[arch]
+    for n in TEMP_LAYERS:
+        assert got[str(n)]["argument_size"] \
+            == ref[f"{arch}/{n}"]["argument_size"], n
+    lo, hi = (got[str(n)]["temp_size"] for n in TEMP_LAYERS)
+    rlo, rhi = (ref[f"{arch}/{n}"]["temp_size"] for n in TEMP_LAYERS)
+    print(f"[dryrun temp] {arch}: port {lo} / {hi}, reference {rlo} / {rhi}"
+          f" bytes at {TEMP_LAYERS} layers: {hi / rhi:.2f}x at "
+          f"{TEMP_LAYERS[1]}, growth {(hi - lo) / (rhi - rlo):.2f}x")
+    assert hi <= 1.5 * rhi, (hi, rhi, hi / rhi)
+    assert hi - lo <= 1.5 * (rhi - rlo), (hi - lo, rhi - rlo,
+                                          (hi - lo) / (rhi - rlo))
+
+
 def _local_bytes(shape, spec, sizes, itemsize) -> int:
     n = math.prod(shape)
     for entry in spec:
@@ -376,11 +487,38 @@ def _plain_case() -> None:
                       {k: ranked[k] for k in keep}]))
 
 
+def _reference_records(arch: str, shape: str, mesh: str, out: str) -> None:
+    """The reference's own dry-run records (``repro.launch.dryrun.run_one``,
+    512 host devices) on an Auto-axis mesh: its CLI FAILs every record
+    under jax 0.9, whose ``jax.make_mesh`` defaults to Explicit axes
+    ("The spec of NamedSharding passed to with_sharding_constraint can
+    only refer to Auto axes").  ``mesh``: single, multi or both; the
+    records land in ``out`` under the port's record names, for
+    ``python -m repro_torch.launch.dryrun --report --beside``."""
+    from repro.launch import dryrun as ref  # sets the host device count
+    import jax
+    from jax.sharding import AxisType
+
+    def auto_mesh(*, multi_pod: bool = False):
+        shape = (2, 16, 16) if multi_pod else (16, 16)
+        axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+        return jax.make_mesh(shape, axes,
+                             axis_types=(AxisType.Auto,) * len(axes))
+    ref.make_production_mesh = auto_mesh
+    for multi in {"single": [False], "multi": [True],
+                  "both": [False, True]}[mesh]:
+        ref.run_one(arch, shape, multi, out)
+
+
 if __name__ == "__main__":
-    if sys.argv[1] == "plain":
+    if sys.argv[1] == "reference":
+        _reference_records(*sys.argv[2:6])
+    elif sys.argv[1] == "plain":
         _plain_case()
     elif sys.argv[1] == "fast":
         _fast_and_full_case(*sys.argv[2:6])
+    elif sys.argv[1] == "temp":
+        _temp_case(*sys.argv[2:4])
     else:
         _run_port_case(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
                        sys.argv[4])

@@ -119,6 +119,38 @@ def test_adamw_matches_reference_over_three_steps():
                                                atol=1e-7)
 
 
+@pytest.mark.parametrize("rows", [False, True], ids=["whole", "by_layer"])
+def test_adamw_in_place_equals_update(rows):
+    """``update_`` (the sharded train step's, which writes into the
+    parameters and moments it is given, as the reference's donated step)
+    gives ``update``'s new parameters and moments bit for bit over the
+    same three steps, each leaf updated whole or, where ``stacked`` says
+    so, one slice of its leading axis at a time; it returns the very
+    tensors it was given."""
+    rng = np.random.default_rng(1)
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    p0 = _tree(lambda s, dt: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(dts[dt]))
+    stacked = _tree(lambda s, dt: rows and len(s) >= 2)
+    want_p, want_o = p0, adamw.init(p0)
+    got_p = adamw.tree_map(torch.clone, p0)
+    got_o = adamw.init(got_p)
+    for gscale in (0.01, 5.0, 0.02):
+        g = _tree(lambda s, dt: torch.from_numpy(
+            (rng.standard_normal(s) * gscale).astype(np.float32)).to(dts[dt]))
+        want_p, want_o, wn = adamw.update(g, want_o, want_p, lr=1e-2)
+        ids = [id(t) for t in adamw.tree_leaves([got_p, got_o.mu, got_o.nu])]
+        got_p, got_o, gn = adamw.update_(g, got_o, got_p, stacked=stacked,
+                                         lr=1e-2)
+        assert ids == [id(t) for t in adamw.tree_leaves(
+            [got_p, got_o.mu, got_o.nu])]
+        assert int(got_o.step) == int(want_o.step) and torch.equal(gn, wn)
+        for t, w in ((got_p, want_p), (got_o.mu, want_o.mu),
+                     (got_o.nu, want_o.nu)):
+            for a, b in zip(adamw.tree_leaves(t), adamw.tree_leaves(w)):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # Checkpoints
 # ---------------------------------------------------------------------------
