@@ -89,11 +89,13 @@ stale ``.profile_store/`` in the working directory changes nothing:
      and bf16), a 1 x 512 prefill replayed in a CUDA graph as the token
      engine's measured prefill, ``serve.decode_executor_for``'s slot
      buckets 1-16 (one decode step each, over a cache prefilled through
-     K1, captured in a CUDA graph; per bucket the step's host-clock ms,
-     one traced replay's busy ms, idle share, K2's and the head product's
-     ms), then ``token_engine.run_continuous`` over them on a 64-request
-     ragged trace: requests conserved, no bucket miss and no stale hit
-     after the warm-up, every decode launch a replay's;
+     K1, captured in a CUDA graph; their graph pool's size; the LM head
+     (bf16 operands, float32 output) against the widened product within
+     the summation-order bound, timed beside it; per bucket the step's
+     host-clock ms, one traced replay's busy ms, idle share, K2's and the
+     head product's ms), then ``token_engine.run_continuous`` over them
+     on a 64-request ragged trace: requests conserved, no bucket miss and
+     no stale hit after the warm-up, every decode launch a replay's;
   8. train (``phase_train``): the blockwise attention's backward (float32,
      SmolLM's and Gemma-2's shapes) against float64 autograd of a dense
      softmax at 2e-5; ``api.train_loss`` and its gradients on the card
@@ -217,7 +219,7 @@ from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.serve import (decode_executor_for,  # noqa: E402
                                       make_controller, real_executor_for)
-from repro_torch.models import api, layers, moe, transformer  # noqa: E402
+from repro_torch.models import api, head, layers, moe, transformer  # noqa: E402
 from repro_torch.models.mamba import ssd_chunked  # noqa: E402
 from repro_torch.perf import autotune  # noqa: E402
 from repro_torch.perf.roofline import (BF16_FLOPS, F32_FLOPS,  # noqa: E402
@@ -1922,18 +1924,56 @@ def _captured(run):
 def _head_kernels(params, cfg, n: int, step: list) -> int:
     """How many of the last device activities of the decode step whose
     traced names are ``step`` are the head product's: those of
-    ``transformer.logits_last`` on ``n`` rows (the float32 widening of the
-    input rows and of the (d, vocab) head, the float32 product, the final
-    softcap), captured in a graph of their own and one replay traced.  A
-    trace whose names are not the step's last fails."""
+    ``head.logits_last`` on ``n`` rows (the bf16 product with float32
+    output, ``mm.dtype``, then the final softcap), captured in a graph of
+    their own and one replay traced.  A trace whose names are not the
+    step's last fails."""
     x = torch.zeros((n, 1, cfg.d_model), dtype=torch_dtype(cfg), device=DEV)
-    graph, _ = _captured(lambda: transformer.logits_last(params, x[:, 0],
-                                                         cfg))
-    head = _device_events(graph.replay, lambda ev: [
+    graph, _ = _captured(lambda: head.logits_last(params, x[:, 0], cfg))
+    events = _device_events(graph.replay, lambda ev: [
         name for name, *_ in ev] == step[-len(ev):])
     del graph
     torch.cuda.empty_cache()
-    return len(head)
+    return len(events)
+
+
+def _head_check(params, cfg, n: int = 16) -> dict:
+    """``head.head_logits`` (bf16 operands, float32 output and
+    accumulation, no float32 copy of the head) on ``n`` rows drawn from
+    seed 0, against the plain widened product on the same operands.  Both
+    sum exact float32 products, in orders of their own, so each element
+    lies within 2 d 2^-24 sum_k |h_k w_k| of the other (twice the bound of
+    one float32 sum of d terms in any order).  Also each path's time per
+    call, eager and on the device alone (``_ms``; the plain one over 5
+    calls, each making a float32 copy of the head), beside the bound: the
+    bf16 head and rows read once, the float32 logits written once."""
+    w = head.head_matrix(params, cfg)
+    g = torch.Generator(device=DEV).manual_seed(0)
+    x = torch.randn((n, cfg.d_model), generator=g, device=DEV).to(w.dtype)
+    got = head.head_logits(x, w)
+    plain = x.float() @ w.float()
+    bound = 2 * cfg.d_model * 2.0 ** -24 * (x.float().abs()
+                                            @ w.float().abs())
+    err = (got - plain).abs()
+    ratio = (err / bound.clamp_min(1e-30)).max().item()
+    assert got.dtype == torch.float32 and ratio <= 1.0, \
+        ("head logits against the widened product", ratio)
+    out = dict(err=_maxerr(got, plain), ratio=ratio)
+    del got, plain, bound, err
+    out["head"] = _ms(lambda: head.head_logits(x, w))
+    plain = lambda: x.float() @ w.float()             # noqa: E731
+    out["plain"] = (_time_ms(plain, 5), _graph_ms(plain, 5))
+    V = w.shape[1]
+    out["bound"] = _bound((cfg.d_model * V + n * cfg.d_model) * 2
+                          + n * V * 4, (2 * n * cfg.d_model * V,
+                                        BF16_FLOPS))
+    return out
+
+
+def _pool_gib(pool) -> float:
+    """GiB of the allocator's segments in the graph pool ``pool``."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) == tuple(pool)) / 2 ** 30
 
 
 def _ladder_rung(ex, cfg, n: int, n_attn: int) -> dict:
@@ -1974,7 +2014,9 @@ def phase_tokens() -> dict:
          replays on the host clock: the profile's measured ``prefill_ms``;
       3. ``serve.decode_executor_for``: one decode step per slot bucket,
          each bucket's cache filled by a prefill through K1 and its step
-         captured in a CUDA graph, warmed largest first; for each rung of
+         captured in a CUDA graph, warmed largest first; the graph
+         pool's size and the head against the widened product
+         (``_head_check``); for each rung of
          ``SLOT_LADDER`` the step's host-clock ms (20 replays), one traced
          replay's device busy ms and idle share, K2's and the head
          product's ms within it, the launches recorded at capture;
@@ -2027,6 +2069,17 @@ def phase_tokens() -> dict:
           f"the card before the init, {_free_gib():.2f} after the warm-up; "
           f"memory reserved {torch.cuda.memory_reserved() / 2 ** 30:.2f} "
           f"GiB, of which parameters {ex.param_bytes / 2 ** 30:.2f}")
+    pool = _pool_gib(ex._graphs.pool)
+    hc = _head_check(ex.params, cfg)
+    print(f"[tokens] {cfg.name} head (bf16 (16, {cfg.d_model}) x "
+          f"({cfg.d_model}, {cfg.vocab_size}), float32 output): "
+          f"max |err| {hc['err']:.3e} against the widened plain product, "
+          f"{hc['ratio']:.3f} of the summation-order bound 2 d 2^-24 "
+          f"sum|h w|; eager {hc['head'][0]:.4f} ms, device "
+          f"{hc['head'][1]:.4f} ms (widened plain {hc['plain'][0]:.4f} / "
+          f"{hc['plain'][1]:.4f} ms; bound {hc['bound'][0]:.4f} ms, "
+          f"{hc['bound'][1]}); the decode steps' graph pool "
+          f"{pool:.3f} GiB after the warm-up")
     for n in SLOT_LADDER:
         r = _ladder_rung(ex, cfg, n, n_attn)
         h = r["host"]

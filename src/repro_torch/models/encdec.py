@@ -29,8 +29,8 @@ from repro_torch.configs.base import torch_dtype
 from repro_torch.distributed import fsdp, is_dtensor
 from repro_torch.distributed.cache_update import (deltas_like, write_slice,
                                                   write_whole)
+from repro_torch.models import head, transformer
 from repro_torch.models import layers as L
-from repro_torch.models import transformer
 from repro_torch.models.transformer import layer_params, unstack
 
 
@@ -185,7 +185,8 @@ def train_loss(params, batch, cfg, *, remat=True, bspec=None, gather=None,
     # the encoder's input needs no gradient: its backward phase runs on to
     # the end of the backward
     enc_out = L.backward_marked(mark, "backward_group0")[1](enc_out)
-    x = L.constrain_batch(params["embed"][tokens].to(torch_dtype(cfg)), bspec)
+    x = L.constrain_batch(head.embed_lookup(params["embed"], tokens).to(
+        torch_dtype(cfg)), bspec)
     positions = torch.arange(tokens.shape[1], device=x.device)
     inward, outward = L.backward_marked(mark, "backward_group1")
     with L.marked(mark, "group1"):
@@ -194,7 +195,7 @@ def train_loss(params, batch, cfg, *, remat=True, bspec=None, gather=None,
                            bspec=bspec, gather=gather)
     h = outward(h)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    ce = transformer.chunked_ce_loss(
+    ce = head.chunked_ce_loss(
         params, h, *transformer.next_token_targets(tokens), cfg)
     return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
                                              device=x.device)}
@@ -210,7 +211,8 @@ def prefill(params, batch, cfg, capacity: int, bspec=None, cache=None,
     params = _top_gathered(params, gather)
     enc_out = encode(params, batch["audio_embeds"], cfg, bspec=bspec,
                      gather=gather)
-    x = L.constrain_batch(params["embed"][tokens].to(torch_dtype(cfg)), bspec)
+    x = L.constrain_batch(head.embed_lookup(params["embed"], tokens).to(
+        torch_dtype(cfg)), bspec)
     B, T = tokens.shape
     positions = torch.arange(T, device=x.device)
     if cache is None:
@@ -218,7 +220,7 @@ def prefill(params, batch, cfg, capacity: int, bspec=None, cache=None,
     h = _decoder_trunk(params, x, cfg, cache, mode="prefill", enc_out=enc_out,
                        positions=positions, bspec=bspec, gather=gather)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return transformer.logits_last(params, h[:, -1], cfg), cache
+    return head.logits_last(params, h[:, -1], cfg), cache
 
 
 def decode_step(params, cache, tokens, pos, cfg, bspec=None,
@@ -229,12 +231,12 @@ def decode_step(params, cache, tokens, pos, cfg, bspec=None,
     reference's deltas: {'k','v': (L, B, KV, 1, hd), 'ck','cv': the cache's
     own}; ``gather`` as ``transformer.prefill``'s."""
     params = _top_gathered(params, gather)
-    x = L.constrain_batch(params["embed"][tokens[:, None]].to(
-        torch_dtype(cfg)), bspec)
+    x = L.constrain_batch(head.embed_lookup(
+        params["embed"], tokens[:, None]).to(torch_dtype(cfg)), bspec)
     h = _decoder_trunk(params, x, cfg, cache, mode="decode", pos=pos,
                        return_deltas=return_deltas, bspec=bspec,
                        gather=gather)
     if return_deltas:
         h, cache = h
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return transformer.logits_last(params, h[:, 0], cfg), cache
+    return head.logits_last(params, h[:, 0], cfg), cache

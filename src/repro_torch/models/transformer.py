@@ -28,7 +28,6 @@ blockwise recomputation (``layers._Flash``), the Mamba blocks run
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, MAMBA, SWA, torch_dtype
@@ -38,6 +37,8 @@ from repro_torch.distributed.cache_update import (deltas_like, write_slice,
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
+from repro_torch.models.head import (chunked_ce_loss, embed_lookup,
+                                     logits_last)
 
 KINDS = (ATTN, SWA, "local_global", MAMBA, "hybrid_super")
 
@@ -430,13 +431,13 @@ def run_group_decode(gp, x, cfg, kind, cache, *, pos, windowed=False,
 
 
 # ---------------------------------------------------------------------------
-# Embedding / head
+# Embedding (the head and its loss: models/head.py)
 # ---------------------------------------------------------------------------
 def embed_tokens(params, tokens, cfg, patch_embeds=None):
     """Token embeddings (B, T, d); ``patch_embeds`` (B, P, d), the stubbed
     vision frontend's output, are projected by ``vis_proj`` and prepended,
     so the sequence is P + T positions long."""
-    x = params["embed"][tokens].to(torch_dtype(cfg))
+    x = embed_lookup(params["embed"], tokens).to(torch_dtype(cfg))
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     if patch_embeds is not None:
@@ -445,18 +446,6 @@ def embed_tokens(params, tokens, cfg, patch_embeds=None):
             pe = pe @ params["vis_proj"]
         x = torch.cat([pe, x], dim=1)
     return x
-
-
-def head_matrix(params, cfg):
-    if cfg.tie_embeddings:
-        return params["embed"].T            # (d, V)
-    return params["lm_head"]
-
-
-def logits_last(params, h_last, cfg):
-    """h_last: (B, d) -> (B, V) float32 logits (with final softcap)."""
-    out = h_last.float() @ head_matrix(params, cfg).float()
-    return L.softcap(out, cfg.final_logit_softcap)
 
 
 def _roll_left(tokens):
@@ -480,38 +469,6 @@ def next_token_targets(tokens):
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
     mask[:, -1] = 0.0
     return _roll_left(tokens), mask
-
-
-def chunked_ce_loss(params, h, labels, mask, cfg, chunk: int = 512):
-    """Cross-entropy over (B, T) without materialising (B, T, V) logits: one
-    non-reentrant ``torch.utils.checkpoint`` per ``chunk`` positions, so a
-    chunk's float32 logits are recomputed in the backward, as the
-    reference's ``jax.checkpoint`` does.  The head product is float32 over
-    the widened operands (the reference's bf16 product with float32
-    output, exact products summed in float32)."""
-    B, T, d = h.shape
-    w = head_matrix(params, cfg)
-    chunk = min(chunk, T)
-    pad = (-T) % chunk
-    if pad:
-        h = F.pad(h, (0, 0, 0, pad))
-        labels = F.pad(labels, (0, pad))
-        mask = F.pad(mask, (0, pad))
-
-    def per_chunk(hh, ll, mm, w):
-        logits = L.softcap(hh.float() @ w.float(), cfg.final_logit_softcap)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, ll[..., None].long())
-        if is_dtensor(gold):    # a vocab-sharded gather's pending sum
-            gold = L.settled(gold)
-        gold = gold[..., 0]
-        return ((lse - gold) * mm).sum()
-
-    total = sum(checkpoint(per_chunk, h[:, c:c + chunk],
-                           labels[:, c:c + chunk], mask[:, c:c + chunk], w,
-                           use_reentrant=False)
-                for c in range(0, T + pad, chunk))
-    return total / mask.sum().clamp_min(1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -151,8 +151,10 @@ _COMPARISONS = {"eq", "ne", "lt", "le", "gt", "ge", "logical_and",
 _REDUCTIONS = {"sum": "add", "mean": "add", "amax": "maximum",
                "amin": "minimum", "max": "maximum", "min": "minimum",
                "prod": "multiply", "any": "or", "all": "and"}
+# ``mixed_mm``: ``models/head.py``'s float32 x 16-bit product, the
+# reference's one dot_general (two 16-bit passes on the card)
 _DENSE_OPS = {"mm", "bmm", "addmm", "baddbmm", "addbmm", "mv", "addmv",
-              "dot", "vdot"}
+              "dot", "vdot", "mixed_mm"}
 _CONV_OPS = {"convolution", "_convolution"}
 _RESHAPES = {"view", "_unsafe_view", "reshape", "_reshape_alias",
              "unsqueeze", "squeeze", "flatten", "unflatten", "view_as",
@@ -406,7 +408,7 @@ def _lower(func, args, kwargs, out, ctx=None) -> Optional[Counter]:
 
 def _dense_flops(name: str, args, out) -> float:
     """2 * prod(output dims) * contracted dim of one dense product."""
-    if name in ("mm", "bmm", "mv"):
+    if name in ("mm", "bmm", "mv", "mixed_mm"):
         lhs = args[0]
     elif name in ("addmm", "baddbmm", "addmv"):
         lhs = args[1]

@@ -811,3 +811,49 @@ def test_paged_is_one_launch_and_allocates_only_its_output(gpu, case):
         atol=2e-2, rtol=2e-2)
     names = _device_kernels(call)
     assert len(names) == 1 and "paged_kernel" in names[0], names
+
+
+# The LM head (``models/head.py``): on the card its product takes bf16
+# operands with float32 output (``mm.dtype``) and its backward a split
+# float32 cotangent; on the CPU the same functions take the widened plain
+# product.  Both sum exact float32 products, in orders of their own.
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma2_2b", "qwen3_moe_30b_a3b"])
+def test_head_on_the_card_matches_the_widened_head(gpu, arch):
+    """TINY ``arch`` in bf16 (Gemma-2: a tied head, softcap 30; Qwen3-MoE:
+    untied): the served logits of 4 rows and the chunked cross-entropy of
+    2 x 40 positions (chunks of 16), with the gradients of both with
+    respect to the rows and the head, card against CPU on the same
+    inputs.  The logits and the loss within 1e-5 of their largest, the
+    gradients within one bf16 spacing of each one's largest (2^-8)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import head
+    cfg = get_config(arch, tiny=True).replace(dtype="bfloat16")
+    V, d = cfg.vocab_size, cfg.d_model
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    rng = np.random.default_rng(0)
+    w = rng.standard_normal((V, d) if cfg.tie_embeddings else (d, V)) * 0.3
+    h = rng.standard_normal((2, 40, d))
+    labels = torch.from_numpy(rng.integers(0, V, (2, 40)))
+    mask = torch.ones((2, 40))
+    mask[:, -1] = 0.0
+    ct = torch.from_numpy(rng.standard_normal((4, V)).astype(np.float32))
+    got = {}
+    for dev in (gpu, torch.device("cpu")):
+        def leaf(x):
+            return torch.from_numpy(x.astype(np.float32)).to(
+                dev, torch.bfloat16).requires_grad_()
+        tw, th, tr = leaf(w), leaf(h), leaf(h[:, 0, :].repeat(2, 0))
+        logits = head.logits_last({name: tw}, tr, cfg)
+        logits.backward(ct.to(dev))
+        g_rows, g_head = tr.grad, tw.grad
+        tw.grad = None
+        loss = head.chunked_ce_loss({name: tw}, th, labels.to(dev),
+                                    mask.to(dev), cfg, chunk=16)
+        loss.backward()
+        got[dev.type] = [t.detach().float().cpu() for t in (
+            logits, g_rows, g_head, loss, th.grad, tw.grad)]
+    for i, (a, b) in enumerate(zip(got["cuda"], got["cpu"])):
+        rel = 1e-5 if i in (0, 3) else 2.0 ** -8
+        assert (a - b).abs().max() <= rel * b.abs().max(), (
+            i, (a - b).abs().max().item(), b.abs().max().item())

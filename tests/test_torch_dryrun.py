@@ -23,6 +23,12 @@ The fast path (``dryrun.analyze_step``: each layer group counted at one
 to three layers and grown to its depth, the temp bytes phase by phase)
 gives the whole step's op-by-op record key for key, for every kind of
 layer group in train, prefill and decode, on a (4, 2) mesh.
+
+The train step's temp bytes are held against the reference's compiled
+step: widened TINY Qwen2 and Mixtral layer by layer (the FSDP gather),
+and full-width Gemma-2-2B at 2 layers on the production (16, 16) mesh
+(the vocab-sharded head and its cross-entropy; about 100 s, the
+reference's 256-device compile beside the port's record).
 """
 
 import json
@@ -358,6 +364,103 @@ def test_train_temp_grows_as_the_reference_layer_by_layer(train_temps, arch):
                                           (hi - lo) / (rhi - rlo))
 
 
+# The head's cross-entropy: full-width Gemma-2-2B (vocabulary 256,000, a
+# tied head, softcap 30) cut to 2 layers, seq 1024 x batch 256 on the
+# production (16, 16) mesh, 256 ranks, 8 microbatches of 2 rows a rank.  A
+# cross-entropy that makes each chunk's logits whole over the vocabulary
+# holds float32 copies of 2 x 512 x 256,000 logits (19.40 GB a rank, 10.7x
+# the reference's); the reference keeps them on each rank's vocabulary
+# shard.
+HEAD_CASE = {"arch": "gemma2_2b", "layers": 2, "seq": 1024, "batch": 256}
+
+REF_HEAD_PROG = r"""
+import os, sys, json
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=256"
+import jax
+from jax.sharding import AxisType
+from repro.configs.base import get_config, InputShape
+from repro.distributed.sharding import MeshInfo
+from repro.launch import steps as steps_lib
+case = json.loads(sys.argv[2])
+mesh = jax.make_mesh((16, 16), ("data", "model"),
+                     axis_types=(AxisType.Auto, AxisType.Auto))
+cfg = get_config(case["arch"]).replace(num_layers=case["layers"])
+shape = InputShape("train_4k", case["seq"], case["batch"], "train")
+with mesh:
+    fn, specs, _, _ = steps_lib.make_train_step(cfg, MeshInfo(mesh), shape)
+    mem = fn.lower(*specs).compile().memory_analysis()
+json.dump({"argument_size": mem.argument_size_in_bytes,
+           "temp_size": mem.temp_size_in_bytes}, open(sys.argv[1], "w"))
+print("REF_OK")
+"""
+
+
+def _head_case(path: str) -> None:
+    """``HEAD_CASE``'s train step, rank 0 of a 256-rank fake group on the
+    (16, 16) mesh: argument and temp bytes, and the peak of each phase."""
+    import torch
+    from repro_torch.configs.base import InputShape, get_config
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.perf import roofline
+    torch.set_num_threads(1)
+    dryrun.fake_group(256)
+    minfo = make_host_mesh(16, 16)
+    c = HEAD_CASE
+    cfg = get_config(c["arch"]).replace(num_layers=c["layers"])
+    shape = InputShape("train_4k", c["seq"], c["batch"], "train")
+    marks = roofline.PhaseMarks()
+    fn, specs, in_sh, _ = steps.make_train_step(cfg, minfo, shape,
+                                                mark=marks)
+    rl = roofline.analyze(fn, dryrun.laid_out(specs, in_sh, minfo), cfg,
+                          shape, 256, marks)
+    Path(path).write_text(json.dumps({
+        "argument_size": rl.memory["argument_size"],
+        "temp_size": rl.memory["temp_size"],
+        "phases": [[name, peak] for (name, _), peak in rl.phase_peaks]}))
+
+
+@pytest.fixture(scope="module")
+def head_temps(tmp_path_factory):
+    """The reference's and the port's ``HEAD_CASE`` records, both at once."""
+    pytest.importorskip("jax")
+    tmp = tmp_path_factory.mktemp("dryrun_head")
+    procs = {"ref": subprocess.Popen(
+        [sys.executable, "-c", REF_HEAD_PROG, str(tmp / "ref.json"),
+         json.dumps(HEAD_CASE)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=_env()),
+        "port": subprocess.Popen(
+            [sys.executable, __file__, "head", str(tmp / "port.json")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=_env())}
+    done = {}
+    for name, p in procs.items():
+        try:
+            out, err = p.communicate(timeout=TIMEOUT)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        assert p.returncode == 0, (name, out[-2000:] + err[-4000:])
+        done[name] = json.loads((tmp / f"{name}.json").read_text())
+    return done
+
+
+def test_train_temp_with_a_vocab_sharded_head_within_the_reference(
+        head_temps):
+    """Full-width Gemma-2-2B's train step at 2 layers (``HEAD_CASE``): temp
+    bytes a rank at most 1.5x the reference's compiled step.  Argument
+    bytes equal the reference's."""
+    ref, got = head_temps["ref"], head_temps["port"]
+    top = max(got["phases"], key=lambda p: p[1])
+    print(f"[dryrun head] port {got['temp_size'] / 1e9:.2f} GB (peak in "
+          f"{top[0]!r}), reference {ref['temp_size'] / 1e9:.2f} GB: "
+          f"{got['temp_size'] / ref['temp_size']:.2f}x")
+    assert got["argument_size"] == ref["argument_size"]
+    assert got["temp_size"] <= 1.5 * ref["temp_size"], (
+        got["temp_size"], ref["temp_size"], top)
+
+
 def _local_bytes(shape, spec, sizes, itemsize) -> int:
     n = math.prod(shape)
     for entry in spec:
@@ -519,6 +622,8 @@ if __name__ == "__main__":
         _fast_and_full_case(*sys.argv[2:6])
     elif sys.argv[1] == "temp":
         _temp_case(*sys.argv[2:4])
+    elif sys.argv[1] == "head":
+        _head_case(sys.argv[2])
     else:
         _run_port_case(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
                        sys.argv[4])
